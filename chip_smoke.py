@@ -1,25 +1,35 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (supersonic_tpu_torch).
 
-Drives the port's main path once on one CUDA card, at the headline query's
-real size (BASELINE.json configs 4/5: FK build 1M x probe 100M, 64 groups):
+Drives the port's main paths on one CUDA card at real size: the headline
+query (BASELINE.json configs 4/5: FK build 1M x probe 100M, 64 groups) and
+the multi-match join of bench_ops.py:188-206 ("join NOT_UNIQUE dup8")
+scaled to emit 100M rows (dim 1M rows, 8 per key; fact 12.5M rows):
 
   1. environment: torch version, the card, nvidia-smi's name and power limit
-  2. build: compiles the CUDA kernels from csrc/ (timed)
+  2. build: compiles the CUDA kernels from csrc/ (one nvcc per source, all
+     at once; timed)
   3. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes: compaction and LUT gather bit for bit (ragged
-     tail, out_cap below the kept count, out-of-range indices), the
-     integer segment-reduce modes exactly, f32 sums within rtol 1e-4
-  4. the main path, once, with every launch counter at 0 before it: the
-     headline plan of bench.py:73-86 through ``execute``, then Filter on
-     its own and an unmasked UNIQUE join over a permuted primary key (the
-     two operators that compact); each is checked against numpy
-  5. the query's median time
+     main paths' shapes: compaction, LUT gather and spread bit for bit
+     (ragged tails, capacities below the total, out-of-range indices,
+     payloads of 1, 2, 4 and 8 bytes, no source, repeated starts), the
+     integer segment-reduce modes exactly, f32 sums within rtol 1e-4.  Each
+     is timed beside its plain version, one PyTorch call computing the same
+     function where there is one, and its bound: the bytes it must move
+     over the card's 3.35 TB/s
+  4. the main paths, each from zeroed launch counters: the headline plan of
+     bench.py:73-86 through ``execute``, then Filter on its own and an
+     unmasked UNIQUE join over a permuted primary key (the two operators
+     that compact); then three joins: (a) the dup8 INNER join, 100M rows;
+     (b) LEFT_OUTER NOT_UNIQUE under Filter(v > 0.5) with half the keys
+     missing; (c) LEFT_OUTER UNIQUE of the 100M-row fact against half its
+     dim.  Each is checked against numpy
+  5. the median times of the headline query and of join (a)
 
 It prints one JSON line of per-kernel results, then as its last line
 ``{"ok": true, "device": {...}}``.  It exits non-zero, and prints no
 result, when any phase fails or no CUDA device is present.  It takes no
-arguments: the size is always the one above.
+arguments: the sizes are always the ones above.
 
     python3 chip_smoke.py
 """
@@ -38,6 +48,11 @@ DIM_ROWS = 1_000_000     # ... FK build 1M
 GROUPS = 64              # bench.py's group count
 REPEATS = 5              # timed runs of the query
 SUM_RTOL = 1e-4  # f32 sums (why: see check_headline)
+DUP_DIM_ROWS = 1_000_000      # bench_ops.py:188-206's dim, 8 rows per key
+DUP_KEYS = DUP_DIM_ROWS // 8
+DUP_FACT_ROWS = 12_500_000    # probe rows: the join emits 100M
+DUP_OUT = 8 * DUP_FACT_ROWS
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 
 
 def log(msg):
@@ -58,6 +73,19 @@ def cuda_ms(torch, fn, reps=10):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound_ms(nbytes):
+    """Least time to move ``nbytes`` through device memory, in ms."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def timings(torch, kernel, plain, library, nbytes):
+    """ms, plain_ms, library_ms (None without a library call), bound_ms and
+    bound_by of one kernel: CUDA-event medians, then the byte bound."""
+    return {"ms": cuda_ms(torch, kernel), "plain_ms": cuda_ms(torch, plain),
+            "library_ms": None if library is None else cuda_ms(torch, library),
+            "bound_ms": bound_ms(nbytes), "bound_by": "bytes"}
 
 
 def bits(t):
@@ -86,6 +114,38 @@ def make_data():
     dim = {"pk": np.arange(DIM_ROWS, dtype=np.int32),
            "g": rng.integers(0, GROUPS, DIM_ROWS).astype(np.int32)}
     return fact, dim
+
+
+def dup8_data():
+    """The dup8 join's data from default_rng(42): fact (fk uniform over the
+    125,000 keys, v) and dim (pk = arange // 8, so each key is on 8
+    consecutive rows, w in [0, 64)); then run (b)'s fk, uniform over twice
+    the keys so half of them miss."""
+    rng = np.random.default_rng(42)
+    fact = {"fk": rng.integers(0, DUP_KEYS, DUP_FACT_ROWS).astype(np.int32),
+            "v": rng.random(DUP_FACT_ROWS, dtype=np.float32)}
+    dim = {"pk": (np.arange(DUP_DIM_ROWS) // 8).astype(np.int32),
+           "w": rng.integers(0, 64, DUP_DIM_ROWS).astype(np.int32)}
+    fk_half = rng.integers(0, 2 * DUP_KEYS, DUP_FACT_ROWS).astype(np.int32)
+    return fact, dim, fk_half
+
+
+def dup8_schemas(T):
+    return (T.TupleSchema.of(("fk", T.INT32, False), ("v", T.FLOAT, False)),
+            T.TupleSchema.of(("pk", T.INT32, False), ("w", T.INT32, False)))
+
+
+def dup8_plan(T, fact_t, dim_t, join_type, filtered):
+    """bench_ops.py:188-218's join: fk = pk against a NOT_UNIQUE dim,
+    projecting v and w, into 100M rows."""
+    lhs = T.ScanTable(fact_t)
+    if filtered:
+        lhs = T.Filter(T.col("v") > T.Const(0.5, T.FLOAT), lhs)
+    return T.HashJoin(join_type, ["fk"], ["pk"], lhs, T.ScanTable(dim_t),
+                      T.KeyUniqueness.NOT_UNIQUE,
+                      lhs_projector=T.Projector.named("v"),
+                      rhs_projector=T.Projector.named("w"),
+                      out_capacity=DUP_OUT)
 
 
 def schemas(T):
@@ -139,11 +199,13 @@ def check_compaction(torch, fk, v, keep):
             assert torch.equal(bits(a[:c]), bits(b[:c])), f"compaction {name}"
             err = max(err, max_abs_diff(a[:c], b[:c]))
     torch.cuda.synchronize()
-    ms = cuda_ms(torch, lambda: compact_kernel([fk, v], keep, n))
-    plain = cuda_ms(torch, lambda: compact_arrays_ref([fk, v], keep, n))
+    t = timings(torch, lambda: compact_kernel([fk, v], keep, n),
+                lambda: compact_arrays_ref([fk, v], keep, n),
+                lambda: [torch.masked_select(p, keep) for p in (fk, v)],
+                n * (1 + 4 + 4) + kept * (4 + 4))
     log(f"kernel compaction: bit-exact on {len(cases)} cases "
-        f"(n={n}, kept={kept}); {ms:.3f} ms vs plain {plain:.3f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain}
+        f"(n={n}, kept={kept}); {t}")
+    return {"max_abs_err": err, **t}
 
 
 def check_lut_gather(torch, fk, dim_g):
@@ -174,11 +236,14 @@ def check_lut_gather(torch, fk, dim_g):
             err = max(err, max_abs_diff(a, b))
     assert not staged([dim_g], K) and staged(small, small_k)
     torch.cuda.synchronize()
-    ms = cuda_ms(torch, lambda: lut_gather([dim_g], fk, K))
-    plain = cuda_ms(torch, lambda: lut_gather_ref([dim_g], fk, K))
-    log(f"kernel lut_gather: bit-exact on {len(cases)} cases (n={fk.shape[0]}"
-        f", K={K}); {ms:.3f} ms vs plain {plain:.3f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain}
+    n = fk.shape[0]  # fk lies in [0, K): index_select needs no clip
+    t = timings(torch, lambda: lut_gather([dim_g], fk, K),
+                lambda: lut_gather_ref([dim_g], fk, K),
+                lambda: torch.index_select(dim_g, 0, fk),
+                n * 4 + K * 4 + n * 4)
+    log(f"kernel lut_gather: bit-exact on {len(cases)} cases (n={n}, K={K}); "
+        f"{t}")
+    return {"max_abs_err": err, **t}
 
 
 def check_segment_reduce(torch, ids, v):
@@ -210,13 +275,124 @@ def check_segment_reduce(torch, ids, v):
                 assert torch.equal(bits(a), bits(b)), f"segment_reduce {mode}"
             err = max(err, max_abs_diff(a, b))
     torch.cuda.synchronize()
-    ms = cuda_ms(torch, lambda: segment_reduce_multi(headline, ids, GROUPS))
-    plain = cuda_ms(torch,
-                    lambda: segment_reduce_multi_ref(headline, ids, GROUPS))
+    # no one PyTorch call computes a count and a sum that drop ids
+    t = timings(torch, lambda: segment_reduce_multi(headline, ids, GROUPS),
+                lambda: segment_reduce_multi_ref(headline, ids, GROUPS), None,
+                n * (4 + 4 + 4) + GROUPS * (8 + 4))
     log(f"kernel segment_reduce: integer modes exact, f32 sums within "
         f"rtol {SUM_RTOL} (K={GROUPS} and 300, n={n}, max abs diff "
-        f"{err:.6g}); {ms:.3f} ms vs plain {plain:.3f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain}
+        f"{err:.6g}); {t}")
+    return {"max_abs_err": err, **t}
+
+
+def check_segment_reduce_small(torch, ids, v):
+    """One request of the segment-reduce kernel, at the headline group-by's
+    shape with every id in range (so index_add_ computes the same sum)."""
+    from supersonic_tpu_torch.kernels.segment_reduce import (
+        segment_reduce_small, segment_reduce_small_ref)
+
+    n = ids.shape[0]
+    iv = (v * 1000).to(torch.int32) - 500
+    err = 0.0
+    for vals, mode in ((v, "sum"), (v, "min"), (v, "max"), (iv, "sum"),
+                       (iv, "min"), (iv, "max")):
+        a = segment_reduce_small(vals, ids, GROUPS, mode)
+        b = segment_reduce_small_ref(vals, ids, GROUPS, mode)
+        if mode == "sum" and vals.dtype == torch.float32:
+            torch.testing.assert_close(a, b, rtol=SUM_RTOL, atol=0)
+        else:
+            assert torch.equal(bits(a), bits(b)), \
+                f"segment_reduce_small {mode}"
+        err = max(err, max_abs_diff(a, b))
+    torch.cuda.synchronize()
+    t = timings(torch, lambda: segment_reduce_small(v, ids, GROUPS, "sum"),
+                lambda: segment_reduce_small_ref(v, ids, GROUPS, "sum"),
+                lambda: torch.zeros(GROUPS, device="cuda").index_add_(0, ids,
+                                                                      v),
+                n * (4 + 4) + GROUPS * 4)
+    log(f"kernel segment_reduce_small: sum/min/max of f32 and i32, integer "
+        f"results and f32 min/max exact, f32 sums within rtol {SUM_RTOL} "
+        f"(n={n}, K={GROUPS}, max abs diff {err:.6g}); {t}")
+    return {"max_abs_err": err, **t}
+
+
+def check_spread(torch, v):
+    """The spread kernel at the dup8 join's shape (12.5M sources of v and
+    d, 8 rows each, into 100M rows), then bit for bit on the edge cases."""
+    from supersonic_tpu_torch.kernels.spread import (I32_MAX, spread_kernel,
+                                                     spread_ref)
+
+    dev = v.device
+    g = torch.Generator(device="cuda").manual_seed(11)
+    n = v.shape[0]
+    eff8 = torch.full((n,), 8, dtype=torch.int64, device=dev)
+    base8 = torch.arange(n, dtype=torch.int32, device=dev) * 8
+    d = torch.randint(-2**31, 2**31 - 1, (n,), dtype=torch.int32, device=dev,
+                      generator=g)
+
+    def runs(m, max_eff, dead=0):
+        eff = torch.randint(1, max_eff + 1, (m,), device=dev, generator=g)
+        base = torch.cat([(torch.cumsum(eff, 0) - eff).to(torch.int32),
+                          torch.full((dead,), I32_MAX, dtype=torch.int32,
+                                     device=dev)])
+        return base, int(eff.sum())
+
+    def rand(m, dtype):
+        if dtype == torch.bool:
+            return torch.rand(m, device=dev, generator=g) < 0.5
+        if dtype.is_floating_point:
+            return torch.randn(m, device=dev, generator=g, dtype=dtype)
+        return torch.randint(-2**15, 2**15, (m,), device=dev, generator=g,
+                             dtype=dtype)
+
+    cases = [("main", [v, d], base8, DUP_OUT, (1,))]
+    bw, tw = runs(1_000_003, 8, dead=1000)
+    wide = [rand(bw.shape[0], t) for t in (torch.bool, torch.int16,
+                                            torch.float32, torch.float64,
+                                            torch.int64)]
+    cases += [("1/2/4/8-byte payloads, dead tail", wide, bw, tw + 5000, ()),
+              ("out_cap < total", wide, bw, tw // 2 + 7, ())]
+    b1, t1 = runs(4_000_000, 1)
+    cases.append(("max_eff 1", [rand(b1.shape[0], torch.int32)], b1, t1,
+                  (0,)))
+    bk, tk = runs(100_000, 1000)
+    cases.append(("max_eff 1000", [rand(bk.shape[0], torch.float32)], bk, tk,
+                  ()))
+    cases.append(("n_src 0", [torch.zeros(0, dtype=torch.int32, device=dev)],
+                  torch.zeros(0, dtype=torch.int32, device=dev), 4096, ()))
+    rep = torch.sort(torch.randint(0, 100_000, (1_000_000,), device=dev,
+                                   generator=g)).values.to(torch.int32)
+    rep[0] = 0
+    cases.append(("repeated starts", [rand(rep.shape[0], torch.int64)], rep,
+                  100_077, ()))
+    err = 0.0
+    for name, pays, base, cap, add_row in cases:
+        got = spread_kernel(pays, base, cap, add_row)
+        want = spread_ref(pays, base, cap, add_row)
+        for a, b in zip(got, want):
+            assert a.shape[0] == cap and torch.equal(bits(a), bits(b)), \
+                f"spread {name}"
+            err = max(err, max_abs_diff(a, b))
+    lib = [torch.repeat_interleave(p, eff8, output_size=DUP_OUT)
+           for p in (v, d)]
+    assert all(torch.equal(bits(a), bits(b)) for a, b in
+               zip(spread_kernel([v, d], base8, DUP_OUT), lib)), \
+        "spread: repeat_interleave disagrees"
+    del lib
+    torch.cuda.synchronize()
+    # as the join calls it: d comes out as the build position j + d; the
+    # library call expands without that add
+    t = timings(torch, lambda: spread_kernel([v, d], base8, DUP_OUT, (1,)),
+                lambda: spread_ref([v, d], base8, DUP_OUT, (1,)),
+                lambda: [torch.repeat_interleave(p, eff8, output_size=DUP_OUT)
+                         for p in (v, d)],
+                n * (4 + 4 + 4) + DUP_OUT * (4 + 4))
+    bare = cuda_ms(torch, lambda: spread_kernel([v, d], base8, DUP_OUT))
+    log(f"kernel spread: bit-exact on {len(cases)} cases ({n} sources into "
+        f"{DUP_OUT} rows; {', '.join(c[0] for c in cases)}; row index added "
+        f"to d in main and max_eff 1); {t}; without the row add "
+        f"{bare:.6f} ms")
+    return {"max_abs_err": err, **t}
 
 
 def check_headline(out, fact, dim):
@@ -241,6 +417,67 @@ def check_headline(out, fact, dim):
     svs = [r[1] for r in rows]
     assert all(a >= b for a, b in zip(svs, svs[1:])), "sv must not increase"
     return len(rows)
+
+
+def check_dup8_inner(torch, out, fact, dim):
+    """Run (a): 100M rows in (lhs row, rhs original order): fact row i
+    meets dim rows 8 fk[i] .. 8 fk[i] + 7."""
+    assert int(out.num_rows) == DUP_OUT, "(a): row count"
+    assert out.columns["w"].valid is None and out.columns["v"].valid is None
+    for col, want in (("v", np.repeat(fact["v"], 8)),
+                      ("w", dim["w"].reshape(-1, 8)[fact["fk"]].ravel())):
+        got = out.columns[col].values[:DUP_OUT]
+        assert torch.equal(bits(got), bits(torch.from_numpy(want).to(
+            got.device))), f"(a): column {col}"
+
+
+def check_dup8_left_outer(torch, out, fact, dim):
+    """Run (b): every kept row (v > 0.5) gets its key's 8 dim rows, or one
+    row with a NULL w when its key is past the dim's.  Returns (rows,
+    NULL rows)."""
+    keep = fact["v"] > 0.5
+    k = fact["fk"][keep].astype(np.int64)
+    hit = k < DUP_KEYS
+    eff = np.where(hit, 8, 1)
+    n = int(eff.sum())
+    assert int(out.num_rows) == n, "(b): row count"
+    first = np.repeat(np.cumsum(eff) - eff, eff)
+    valid = np.repeat(hit, eff)
+    w_idx = np.repeat(8 * k, eff) + (np.arange(n) - first)
+    want_w = np.where(valid, dim["w"][np.where(valid, w_idx, 0)], 0)
+    v = out.columns["v"].values[:n]
+    w = out.columns["w"]
+    dev = v.device
+    assert torch.equal(bits(v), bits(torch.from_numpy(
+        np.repeat(fact["v"][keep], eff)).to(dev))), "(b): column v"
+    got_valid = w.valid[:n]
+    assert torch.equal(got_valid, torch.from_numpy(valid).to(dev)), \
+        "(b): NULLs of w"
+    assert torch.equal(torch.where(got_valid, w.values[:n], 0),
+                       torch.from_numpy(want_w.astype(np.int32)).to(dev)), \
+        "(b): column w"
+    return n, int((~hit).sum())
+
+
+def check_left_outer_unique(torch, out, fact, half):
+    """Run (c): every fact row, in order; g is NULL where fk is past the
+    half dim.  Returns the NULL count."""
+    kh = half["pk"].shape[0]
+    assert int(out.num_rows) == FACT_ROWS, "(c): row count"
+    hit = fact["fk"] < kh
+    want_g = np.where(hit, half["g"][np.minimum(fact["fk"], kh - 1)], 0)
+    v = out.columns["v"].values[:FACT_ROWS]
+    dev = v.device
+    assert torch.equal(bits(v), bits(torch.from_numpy(fact["v"]).to(dev))), \
+        "(c): column v"
+    g = out.columns["g"]
+    got_valid = g.valid[:FACT_ROWS]
+    assert torch.equal(got_valid, torch.from_numpy(hit).to(dev)), \
+        "(c): NULLs of g"
+    assert torch.equal(torch.where(got_valid, g.values[:FACT_ROWS], 0),
+                       torch.from_numpy(want_g.astype(np.int32)).to(dev)), \
+        "(c): column g"
+    return int((~hit).sum())
 
 
 def main():
@@ -270,55 +507,68 @@ def main():
     kernels.library()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
 
-    # 3. kernels against their plain versions, at the main path's shapes
+    # 3. kernels against their plain versions, at the main paths' shapes
     fact, dim = make_data()
+    dfact, ddim, fk_half = dup8_data()
     fk = torch.from_numpy(fact["fk"]).to(dev)
     v = torch.from_numpy(fact["v"]).to(dev)
     dim_g = torch.from_numpy(dim["g"]).to(dev)
     keep = v > 0.5
-    ids = torch.where(keep, dim_g[fk.long()], -1).to(torch.int32)
+    all_ids = dim_g[fk.long()]
+    ids = torch.where(keep, all_ids, -1).to(torch.int32)
     results = {
         "compaction": check_compaction(torch, fk, v, keep),
         "lut_gather": check_lut_gather(torch, fk, dim_g),
         "segment_reduce": check_segment_reduce(torch, ids, v),
+        "segment_reduce_small": check_segment_reduce_small(torch, all_ids, v),
+        "spread": check_spread(torch, torch.from_numpy(dfact["v"]).to(dev)),
     }
-    del fk, v, dim_g, keep, ids
+    del fk, v, dim_g, keep, ids, all_ids
 
-    # 4. the main path once, from zeroed launch counters
+    # 4. the main paths, each from zeroed launch counters
     fs, ds = schemas(T)
-    fact_t = T.Table.from_numpy(fs, fact, None, dev)
-    dim_t = T.Table.from_numpy(ds, dim, None, dev)
+    fact_t = T.Table.from_numpy(fs, fact, device=dev)
+    dim_t = T.Table.from_numpy(ds, dim, device=dev)
     perm = np.random.default_rng(7).permutation(DIM_ROWS)
     dim_p = {"pk": dim["pk"][perm], "g": dim["g"][perm]}
-    dim_pt = T.Table.from_numpy(ds, dim_p, None, dev)
+    dim_pt = T.Table.from_numpy(ds, dim_p, device=dev)
+    half = {"pk": dim["pk"][:DIM_ROWS // 2], "g": dim["g"][:DIM_ROWS // 2]}
+    dim_ht = T.Table.from_numpy(ds, half, device=dev)
+    dfs, dds = dup8_schemas(T)
+    dfact_t = T.Table.from_numpy(dfs, dfact, device=dev)
+    dhalf_t = T.Table.from_numpy(dfs, dict(dfact, fk=fk_half), device=dev)
+    ddim_t = T.Table.from_numpy(dds, ddim, device=dev)
 
     def pred():
         return T.col("v") > T.Const(0.5, T.FLOAT)
 
-    filter_plan = T.Filter(pred(), T.ScanTable(fact_t))
-    join_plan = T.HashJoin(T.JoinType.INNER, ["fk"], ["pk"],
-                           T.Filter(pred(), T.ScanTable(fact_t)),
-                           T.ScanTable(dim_pt), T.KeyUniqueness.UNIQUE,
-                           lhs_projector=T.Projector.named("fk", "v"),
-                           rhs_projector=T.Projector.named("g"))
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    out = T.execute(headline_plan(T, fact_t, dim_t))
-    torch.cuda.synchronize()
-    by_query = dict(kernels.launches)
-    filtered = T.execute(filter_plan)
-    joined = T.execute(join_plan)
-    torch.cuda.synchronize()
-    counts = dict(kernels.launches)
-    by_compacting = {k: counts[k] - by_query[k] for k in counts}
-    log(f"main path launches: headline query {by_query}; Filter and "
-        f"unmasked join {by_compacting}")
-    for k in ("segment_reduce", "lut_gather"):
-        assert by_query[k] > 0, f"headline query did not launch {k}"
-    for k in ("compaction", "lut_gather"):
-        assert by_compacting[k] > 0, f"Filter/join did not launch {k}"
+    total = {k: 0 for k in kernels.launches}
 
+    def drive(label, plan, needs):
+        """Execute ``plan`` from zeroed counters; every kernel in ``needs``
+        must have launched."""
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = T.execute(plan)
+        torch.cuda.synchronize()
+        got = dict(kernels.launches)
+        for k in got:
+            total[k] += got[k]
+        log(f"main path launches, {label}: {got}")
+        for k in needs:
+            assert got[k] > 0, f"{label} did not launch {k}"
+        return out
+
+    out = drive("headline query", headline_plan(T, fact_t, dim_t),
+                ("segment_reduce", "lut_gather"))
     groups = check_headline(out, fact, dim)
+    filtered = drive("Filter", T.Filter(pred(), T.ScanTable(fact_t)),
+                     ("compaction",))
+    joined = drive("unmasked UNIQUE join", T.HashJoin(
+        T.JoinType.INNER, ["fk"], ["pk"],
+        T.Filter(pred(), T.ScanTable(fact_t)), T.ScanTable(dim_pt), T.KeyUniqueness.UNIQUE,
+        lhs_projector=T.Projector.named("fk", "v"),
+        rhs_projector=T.Projector.named("g")), ("compaction", "lut_gather"))
     keep_np = fact["v"] > 0.5
     n_keep = int(keep_np.sum())
     assert int(filtered.num_rows) == n_keep, "Filter: row count"
@@ -340,17 +590,44 @@ def main():
         f"match numpy ({n_keep} rows)")
     del out, filtered, joined
 
-    # 5. the query's time, host clock around execute (which ends in a sync)
-    times = []
-    for _ in range(REPEATS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        T.execute(headline_plan(T, fact_t, dim_t))
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    log(f"headline query {FACT_ROWS} x {DIM_ROWS}: median "
-        f"{statistics.median(times):.3f} ms over {REPEATS} runs "
-        f"(all: {', '.join(f'{t:.3f}' for t in times)}); card: {smi}")
+    out = drive("(a) dup8 INNER join", dup8_plan(
+        T, dfact_t, ddim_t, T.JoinType.INNER, False),
+        ("spread", "compaction", "lut_gather"))
+    check_dup8_inner(torch, out, dfact, ddim)
+    del out
+    out = drive("(b) LEFT_OUTER NOT_UNIQUE join under Filter", dup8_plan(
+        T, dhalf_t, ddim_t, T.JoinType.LEFT_OUTER, True),
+        ("spread", "compaction", "lut_gather"))
+    nb = check_dup8_left_outer(torch, out, dict(dfact, fk=fk_half), ddim)
+    del out
+    out = drive("(c) LEFT_OUTER UNIQUE join, row-id probe", T.HashJoin(
+        T.JoinType.LEFT_OUTER, ["fk"], ["pk"], T.ScanTable(fact_t),
+        T.ScanTable(dim_ht), T.KeyUniqueness.UNIQUE,
+        lhs_projector=T.Projector.named("v"),
+        rhs_projector=T.Projector.named("g")), ("lut_gather",))
+    nulls = check_left_outer_unique(torch, out, fact, half)
+    del out
+    log(f"joins match numpy in order: (a) {DUP_OUT} rows; (b) {nb[0]} rows, "
+        f"{nb[1]} with a NULL w; (c) {FACT_ROWS} rows, {nulls} with a NULL g")
+
+    # 5. times, host clock around execute (which ends in a sync)
+    def median_ms(plan_fn, label, size):
+        times = []
+        for _ in range(REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            T.execute(plan_fn())
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        log(f"{label} {size}: median {statistics.median(times):.3f} ms over "
+            f"{REPEATS} runs (all: {', '.join(f'{t:.3f}' for t in times)}); "
+            f"card: {smi}")
+
+    median_ms(lambda: headline_plan(T, fact_t, dim_t), "headline query",
+              f"{FACT_ROWS} x {DIM_ROWS}")
+    median_ms(lambda: dup8_plan(T, dfact_t, ddim_t, T.JoinType.INNER, False),
+              "(a) dup8 INNER join", f"{DUP_FACT_ROWS} x {DUP_DIM_ROWS} -> "
+              f"{DUP_OUT} rows")
 
     meta = {
         "compaction": ("supersonic_tpu_torch/csrc/compaction.cu",
@@ -359,16 +636,21 @@ def main():
                        "supersonic_tpu/kernels/lut_gather.py:111"),
         "segment_reduce": ("supersonic_tpu_torch/csrc/segment_reduce.cu",
                            "supersonic_tpu/kernels/segment_reduce.py:336"),
+        "segment_reduce_small": (
+            "supersonic_tpu_torch/csrc/segment_reduce.cu",
+            "supersonic_tpu/kernels/segment_reduce.py:103"),
+        "spread": ("supersonic_tpu_torch/csrc/spread.cu",
+                   "supersonic_tpu/kernels/spread.py:333"),
     }
+    print(smi)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": meta[k][0],
-         "replaces": meta[k][1], "launches": counts[k], **results[k]}
+         "replaces": meta[k][1], "launches": total[k], **results[k]}
         for k in meta]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     try:

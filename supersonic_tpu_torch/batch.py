@@ -57,19 +57,18 @@ def _host_stats(schema: TupleSchema, host: dict, n: int):
     rows."""
     stats: dict = {}
     rowid: set = set()
-    if n == 0:
-        return stats, rowid
     for a in schema:
         if a.type not in _STAT_TYPES:
             continue
         vals, valid = host[a.name]
+        all_valid = valid is None or bool(valid.all())
         if valid is not None:
-            if not valid.any():
-                continue
-            all_valid = bool(valid.all())
             vals = vals[valid]
-        else:
-            all_valid = True
+        if vals.size == 0:
+            # no non-NULL live value, so any bound holds: one slot keeps
+            # the dense plans (a join against an empty build side) open
+            stats[a.name] = (0, 0)
+            continue
         mn, mx = int(vals.min()), int(vals.max())
         stats[a.name] = (mn, mx)
         if (all_valid and mx - mn + 1 == n
@@ -99,15 +98,19 @@ class Table:
 
     # -- construction ---------------------------------------------------------
     @staticmethod
-    def from_numpy(schema: TupleSchema, arrays: dict, dicts, device,
-                   capacity: Optional[int] = None) -> "Table":
+    def from_numpy(schema: TupleSchema, arrays: dict,
+                   capacity: Optional[int] = None,
+                   dicts: Optional[dict] = None, *,
+                   device="cuda") -> "Table":
         """Build a Table from host numpy column arrays: the arrays the JAX
         package holds (``np.asarray`` of its columns) become this port's
-        table on ``device``, so both engines run on identical data.
+        table on ``device`` (the card unless the caller asks for another),
+        so both engines run on identical data.
 
         ``arrays[name]`` is a value ndarray, or a ``(values, valid)`` pair
         for a nullable column.  Rows past ``len`` up to ``capacity`` are
-        padding.
+        padding.  The positional order is the JAX package's
+        ``from_data(schema, data, capacity, dicts)``.
         """
         for a in schema:
             check_column_type(a.type)
@@ -157,10 +160,11 @@ class Table:
         return table
 
     @staticmethod
-    def from_data(schema: TupleSchema, data: dict, device,
-                  capacity: Optional[int] = None, dicts=None) -> "Table":
+    def from_data(schema: TupleSchema, data: dict,
+                  capacity: Optional[int] = None, dicts: Optional[dict] = None,
+                  *, device="cuda") -> "Table":
         """Build a Table from python sequences (None entries = NULL) or
-        numpy arrays."""
+        numpy arrays; the arguments are those of ``from_numpy``."""
         arrays = {}
         for a in schema:
             check_column_type(a.type)
@@ -177,7 +181,7 @@ class Table:
             if not a.nullable and not valid.all():
                 raise SchemaError(f"NULL in non-nullable column {a.name!r}")
             arrays[a.name] = (vals, valid) if a.nullable else vals
-        return Table.from_numpy(schema, arrays, dicts, device, capacity)
+        return Table.from_numpy(schema, arrays, capacity, dicts, device=device)
 
     # -- inspection -----------------------------------------------------------
     @property

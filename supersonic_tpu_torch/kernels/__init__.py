@@ -2,18 +2,20 @@
 
 The CUDA sources live in ``supersonic_tpu_torch/csrc``.  At the first
 launch on a CUDA tensor, ``library()`` compiles them with ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface under
-``supersonic_tpu_torch/_build/`` (named by a hash of the sources, so an
-edited source rebuilds) and loads it with ``ctypes``.  Importing this
+``sm_90a`` (one process per source, all at once) into one shared library
+with a plain C interface under ``supersonic_tpu_torch/_build/`` (named by a
+hash of the sources, so an edited source rebuilds) and loads it with
+``ctypes``.  Importing this
 package builds nothing: the CPU tests import every module.
 
-Each kernel module (``compaction``, ``lut_gather``, ``segment_reduce``)
-holds its wrapper and the wrapper's plain PyTorch version.  A wrapper given
-CPU tensors runs the plain version; given CUDA tensors it launches its
-kernel or raises.  A wrapper adds one to ``launches[name]`` right after
+Each kernel module (``compaction``, ``lut_gather``, ``segment_reduce``,
+``spread``) holds its wrappers and their plain PyTorch versions.  A wrapper
+given CPU tensors runs the plain version; given CUDA tensors it launches
+its kernel or raises.  A wrapper adds one to ``launches[name]`` right after
 each kernel launch it makes, and nowhere else: compaction launches a count
-and a scatter kernel, segment_reduce a partial and a final pass, lut_gather
-one kernel.
+and a scatter kernel, segment_reduce (and segment_reduce_small, one request
+of the same kernel) a partial and a final pass, spread a bounds and an
+expand kernel, lut_gather one kernel.
 """
 from __future__ import annotations
 
@@ -36,7 +38,8 @@ MAX_ARRAYS = 32
 
 # kernel name -> launches since the last reset_launches()
 launches: dict[str, int] = {"compaction": 0, "lut_gather": 0,
-                            "segment_reduce": 0}
+                            "segment_reduce": 0, "segment_reduce_small": 0,
+                            "spread": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -76,16 +79,35 @@ def build() -> pathlib.Path:
     out = BUILD_DIR / f"libsupersonic_kernels_{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp)] + [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    tmp = BUILD_DIR / f"tmp.{os.getpid()}"
+    tmp.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    # one nvcc per source, all started at once, then one link
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = tmp / f"{src.stem}.o"
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c",
+               "-o", str(obj), str(src)]
+        jobs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    logs = []
+    for src, _obj, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise KernelError(f"nvcc failed on {src.name} "
+                              f"({proc.returncode}):\n{err}")
+        logs.append(err)
+    lib = tmp / out.name
+    res = subprocess.run([nvcc, "-shared", "-o", str(lib)]
+                         + [str(obj) for _, obj, _ in jobs],
+                         capture_output=True, text=True)
     if res.returncode != 0:
-        raise KernelError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    (BUILD_DIR / "ptxas.log").write_text(res.stderr)
-    os.replace(tmp, out)  # atomic: concurrent builds race harmlessly
+        raise KernelError(f"nvcc link failed ({res.returncode}):\n"
+                          f"{res.stderr}")
+    (BUILD_DIR / "ptxas.log").write_text("".join(logs))
+    os.replace(lib, out)  # atomic: concurrent builds race harmlessly
+    shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
@@ -102,6 +124,9 @@ def _bind(lib) -> None:
         "ss_segment_reduce_threads": [],
         "ss_segment_reduce_partial": [P, L, I, I, IP, PP, P, I, P],
         "ss_segment_reduce_final": [P, I, I, I, IP, PP, P],
+        "ss_spread_tile_rows": [],
+        "ss_spread_bounds": [P, I, L, P, P],
+        "ss_spread_expand": [P, L, P, I, ctypes.c_uint, PP, PP, IP, P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)

@@ -1,6 +1,8 @@
 """Fused multi-request segmented reduction (kernel: ``csrc/segment_reduce.cu``).
 
-Port of ``supersonic_tpu/kernels/segment_reduce.py::segment_reduce_multi``.
+Port of ``supersonic_tpu/kernels/segment_reduce.py::segment_reduce_multi``,
+and of its ``segment_reduce_small`` (one sum, min or max) as one request of
+the same kernel.
 ``requests`` is a list of ``(values, mode)``; every request reduces its
 values over the same ``segment_ids`` into ``num_segments`` slots in one
 pass over the rows (a partial launch, then a final fold), and ids outside [0, num_segments) are dropped.
@@ -81,6 +83,29 @@ def segment_reduce_multi(requests, segment_ids: torch.Tensor,
                          num_segments: int):
     """Fused segmented reductions; see the module docstring.  CPU tensors
     take ``segment_reduce_multi_ref``; CUDA tensors launch the kernel."""
+    return _segment_reduce(requests, segment_ids, num_segments,
+                           "segment_reduce")
+
+
+def segment_reduce_small_ref(values: torch.Tensor, segment_ids: torch.Tensor,
+                             num_segments: int, mode: str = "sum"):
+    """Plain PyTorch version of ``segment_reduce_small``."""
+    return segment_reduce_multi_ref([(values, mode)], segment_ids,
+                                    num_segments)[0]
+
+
+def segment_reduce_small(values: torch.Tensor, segment_ids: torch.Tensor,
+                         num_segments: int, mode: str = "sum"):
+    """One segmented ``sum``, ``min`` or ``max`` of f32 or i32 values into
+    ``num_segments`` slots; ids outside [0, num_segments) drop.  Its
+    launches count under ``segment_reduce_small``."""
+    if mode not in ("sum", "min", "max"):
+        raise ValueError(f"segment_reduce_small: mode {mode!r}")
+    return _segment_reduce([(values, mode)], segment_ids, num_segments,
+                           "segment_reduce_small")[0]
+
+
+def _segment_reduce(requests, segment_ids, num_segments, counter: str):
     if segment_ids.dtype != torch.int32 or segment_ids.dim() != 1:
         raise ValueError("segment_reduce_multi: segment ids must be a 1-D "
                          "int32 tensor")
@@ -118,9 +143,9 @@ def segment_reduce_multi(requests, segment_ids: torch.Tensor,
             segment_ids.data_ptr(), n, K, nreq, int_array(modes),
             ptr_array(vals), partial.data_ptr(), nblocks, stream),
             "segment_reduce partial")
-        launches["segment_reduce"] += 1
+        launches[counter] += 1
         check(lib.ss_segment_reduce_final(
             partial.data_ptr(), nblocks, K, nreq, int_array(modes),
             ptr_array(outs), stream), "segment_reduce final")
-        launches["segment_reduce"] += 1
+        launches[counter] += 1
     return outs

@@ -1,5 +1,6 @@
-"""Operator surface of the port (the slice: scan, filter, project, dense
-UNIQUE INNER join, dense group-by, sort)."""
+"""Operator surface of the port (so far: scan, filter, project, INNER and
+LEFT_OUTER joins over dense integer keys with UNIQUE or NOT_UNIQUE rhs,
+dense group-by, sort)."""
 from .aggregate import (AggregationSpecification, AggSpec, Aggregation,
                         GroupAggregate, GroupAggregateOptions)
 from .base import (BindContext, BoundOperation, CancellationToken,

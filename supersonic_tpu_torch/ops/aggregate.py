@@ -307,7 +307,9 @@ class GroupAggregate(Operation):
         if not self.group_by:
             not_ported("GroupAggregate without group keys", "12")
         inner, preds = unwrap_filters(self.child)
-        # a UNIQUE join child binds masked: its keep mask becomes ours
+        # a UNIQUE join child binds masked: its keep mask (the matches for
+        # INNER, the kept lhs rows for LEFT_OUTER) becomes ours; a
+        # NOT_UNIQUE child expands, so it binds unmasked
         masked_join = (isinstance(inner, HashJoin)
                        and inner.uniqueness == KeyUniqueness.UNIQUE)
         cb = inner.bind(ctx, _masked=True) if masked_join else inner.bind(ctx)

@@ -104,8 +104,9 @@ class Sort(Operation):
         from .filter import bind_predicates, keep_mask, unwrap_filters
         from .hash_join import HashJoin, KeyUniqueness
         inner, preds = unwrap_filters(self.child)
-        # a UNIQUE join child binds masked and its keep mask becomes the
-        # pad mask; an aggregate child skips its insertion-order re-rank
+        # a UNIQUE join child (INNER or LEFT_OUTER) binds masked and its
+        # keep mask becomes the pad mask; a NOT_UNIQUE one binds unmasked;
+        # an aggregate child skips its insertion-order re-rank
         # (tie order among equal sort keys becomes key order; the
         # reference's unstable std::sort promises none either)
         masked_join = (isinstance(inner, HashJoin)

@@ -17,6 +17,7 @@ from supersonic_tpu_torch.kernels.compaction import (compact_arrays_ref,
                                                      compact_kernel)
 from supersonic_tpu_torch.kernels.lut_gather import lut_gather
 from supersonic_tpu_torch.kernels.segment_reduce import segment_reduce_multi
+from supersonic_tpu_torch.kernels.spread import spread_kernel
 
 torch.set_num_threads(1)
 
@@ -160,5 +161,7 @@ def test_cpu_wrappers_launch_no_kernel():
     lut_gather([torch.arange(8)], torch.zeros(8, dtype=torch.int32), 8)
     segment_reduce_multi([(torch.ones(8), "sum")],
                          torch.zeros(8, dtype=torch.int32), 2)
+    spread_kernel([torch.arange(8)], torch.arange(8, dtype=torch.int32), 9)
     assert kernels.launches == {"compaction": 0, "lut_gather": 0,
-                                "segment_reduce": 0}
+                                "segment_reduce": 0,
+                                "segment_reduce_small": 0, "spread": 0}

@@ -7,15 +7,13 @@ import torch
 
 import supersonic_tpu as J
 import supersonic_tpu_torch as T
-from supersonic_tpu.ops.base import RunContext as JRunContext
-from supersonic_tpu.ops.base import compile_plan as j_compile_plan
 from supersonic_tpu_torch.ops.base import compile_plan as t_compile_plan
 from supersonic_tpu_torch.ops.base import raise_flags
 
 from torch_parity import (DIM_SCHEMA, FACT_SCHEMA, assert_grouped_equal,
                           headline_aggregate, headline_data, headline_join,
-                          headline_plan, jax_table, predicate, schema,
-                          torch_table)
+                          headline_plan, jax_raised, jax_table, predicate,
+                          schema, torch_raised, torch_table)
 
 torch.set_num_threads(1)
 
@@ -94,22 +92,6 @@ def test_row_id_join_with_out_of_range_keys():
     assert got.to_pylist() == want.to_pylist()
 
 
-def _jax_raised(plan, leaves):
-    """Flag names the JAX package raises for a compiled plan re-run on
-    other leaves (as its execute() recovers them)."""
-    run, bound, _ = j_compile_plan(plan)
-    _, flags = run(leaves)
-    ctx = JRunContext(list(leaves))
-    bound.run(ctx)
-    return {n for (n, _), f in zip(ctx.error_flags, np.asarray(flags)) if f}
-
-
-def _torch_raised(plan, leaves):
-    run, _, _ = t_compile_plan(plan)
-    _, flags, names = run(leaves)
-    return {n for n, f in zip(names, flags.tolist()) if f}
-
-
 def test_result_overflow_raises_like_jax():
     fact, dim = headline_data(FACT, DIM)
     (jf, jd), (tf, td) = _tables(fact, dim)
@@ -131,8 +113,8 @@ def test_stale_statistics_raise_the_same_guard_flags():
     (jf2, jd2), (tf2, td2) = _tables(fact, dim2)
     jplan = headline_plan(J, jf, jd)
     setattr(jplan.child, "_pushdown_disabled", True)
-    want = _jax_raised(jplan, [jf2, jd2])
-    got = _torch_raised(headline_plan(T, tf, td), [tf2, td2])
+    want = jax_raised(jplan, [jf2, jd2])
+    got = torch_raised(headline_plan(T, tf, td), [tf2, td2])
     assert got == want == {
         "aggregate key exceeds planned dense domain",
         "join rhs key is not the planned row-id sequence"}
@@ -141,8 +123,8 @@ def test_stale_statistics_raise_the_same_guard_flags():
     (jf, jd), (tf, td) = _tables(fact_p, dim_p)
     dim_p2 = {"pk": dim_p["pk"] + 5, "g": dim_p["g"]}
     (_, jd2), (_, td2) = _tables(fact_p, dim_p2)
-    want = _jax_raised(headline_join(J, jf, jd, True), [jf, jd2])
-    got = _torch_raised(headline_join(T, tf, td, True), [tf, td2])
+    want = jax_raised(headline_join(J, jf, jd, True), [jf, jd2])
+    got = torch_raised(headline_join(T, tf, td, True), [tf, td2])
     assert got == want == {"join build keys exceed planned dense range"}
     _, flags, names = t_compile_plan(headline_join(T, tf, td, True))[0](
         [tf, td2])
@@ -173,7 +155,7 @@ def _null_data(n=3000, seed=11):
 def test_sort_nulls_and_stability_match_jax(keys):
     data = _null_data()
     jt = J.Table.from_data(schema(J, NULL_SCHEMA), data)
-    tt = T.Table.from_data(schema(T, NULL_SCHEMA), data, "cpu")
+    tt = T.Table.from_data(schema(T, NULL_SCHEMA), data, device="cpu")
     order = [(n, asc) for n, asc in keys]
     got = T.execute(T.Sort([T.SortKey(n, a) for n, a in order],
                            T.ScanTable(tt))).to_pylist()
@@ -187,7 +169,7 @@ def test_dense_aggregate_modes_match_jax():
     fused filter."""
     data = _null_data(seed=4)
     jt = J.Table.from_data(schema(J, NULL_SCHEMA), data)
-    tt = T.Table.from_data(schema(T, NULL_SCHEMA), data, "cpu")
+    tt = T.Table.from_data(schema(T, NULL_SCHEMA), data, device="cpu")
 
     def plan(ns, t):
         A = ns.Aggregation
@@ -210,11 +192,17 @@ def test_dense_aggregate_modes_match_jax():
 
 
 @pytest.mark.parametrize("make", [
+    # dense LEFT_OUTER and NOT_UNIQUE joins are ported; without dense
+    # lookups they need the merge probe, which is not
     lambda t, d: T.HashJoin(T.JoinType.LEFT_OUTER, ["fk"], ["pk"],
                             T.ScanTable(t), T.ScanTable(d),
-                            T.KeyUniqueness.UNIQUE),
+                            T.KeyUniqueness.UNIQUE,
+                            rhs_projector=T.Projector.named("g"),
+                            allow_dense_lookup=False),
     lambda t, d: T.HashJoin(T.JoinType.INNER, ["fk"], ["pk"],
-                            T.ScanTable(t), T.ScanTable(d)),
+                            T.ScanTable(t), T.ScanTable(d),
+                            rhs_projector=T.Projector.named("g"),
+                            allow_dense_lookup=False),
     lambda t, d: T.GroupAggregate(["pk"], [T.AggSpec(T.Aggregation.COUNT,
                                                      None, "c")],
                                   T.ScanTable(d)),
@@ -227,8 +215,8 @@ def test_outside_the_slice_raises_not_implemented(make):
     _, (tf, td) = _tables(fact, dim)
     td = T.Table.from_numpy(
         schema(T, DIM_SCHEMA + (("v", "FLOAT", False),)),
-        dict(dim, pk=dim["pk"] * 4, v=np.ones(DIM, np.float32)), None,
-        "cpu")  # pk spans 4093 slots: past the dense group-by's 2048
+        dict(dim, pk=dim["pk"] * 4, v=np.ones(DIM, np.float32)),
+        device="cpu")  # pk spans 4093 slots: past the dense group-by's 2048
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         T.execute(make(tf, td))
 
@@ -236,7 +224,7 @@ def test_outside_the_slice_raises_not_implemented(make):
 def test_string_columns_are_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         T.Table.from_data(T.TupleSchema.of(("s", T.DataType.STRING)),
-                          {"s": ["a"]}, "cpu")
+                          {"s": ["a"]}, device="cpu")
 
 
 def test_composite_keys_match_jax():
@@ -275,3 +263,24 @@ def test_composite_keys_match_jax():
         [(g, b, c) for g, b, _, c in want]
     np.testing.assert_allclose([r[2] for r in got], [r[2] for r in want],
                                rtol=1e-5)
+
+
+def test_from_data_takes_the_jax_argument_order():
+    """from_data(schema, data, capacity, dicts) means the same in both
+    packages; the device is a keyword that defaults to the card."""
+    import inspect
+
+    s = schema(T, DIM_SCHEMA)
+    data = {"pk": [1, 2, 3], "g": [4, 5, 6]}
+    t = T.Table.from_data(s, data, 16, device="cpu")
+    j = J.Table.from_data(schema(J, DIM_SCHEMA), data, 16)
+    assert t.capacity == j.capacity == 16 and t.device.type == "cpu"
+    assert t.to_pylist() == j.to_pylist()
+    for build in (T.Table.from_data, T.Table.from_numpy):
+        p = inspect.signature(build).parameters
+        assert list(p)[:4] == ["schema", "data" if build is T.Table.from_data
+                               else "arrays", "capacity", "dicts"]
+        assert p["device"].kind is inspect.Parameter.KEYWORD_ONLY
+        assert p["device"].default == "cuda"
+    with pytest.raises(TypeError):  # a fifth positional is not a device
+        T.Table.from_data(s, data, 16, None, "cpu")

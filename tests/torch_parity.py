@@ -33,7 +33,7 @@ def jax_table(ns, cols, data):
 
 
 def torch_table(ns, cols, data, device="cpu"):
-    return ns.Table.from_numpy(schema(ns, cols), data, None, device)
+    return ns.Table.from_data(schema(ns, cols), data, device=device)
 
 
 def predicate(ns):
@@ -86,3 +86,24 @@ def assert_grouped_equal(got, want, key, float_cols, rtol):
                 np.testing.assert_allclose(a, b, rtol=rtol)
             else:
                 assert a == b, (k, name, a, b)
+
+
+def jax_raised(plan, leaves):
+    """Flag names the JAX package raises for a compiled plan re-run on
+    other leaves (as its execute() recovers them)."""
+    from supersonic_tpu.ops.base import RunContext, compile_plan
+
+    run, bound, _ = compile_plan(plan)
+    _, flags = run(leaves)
+    ctx = RunContext(list(leaves))
+    bound.run(ctx)
+    return {n for (n, _), f in zip(ctx.error_flags, np.asarray(flags)) if f}
+
+
+def torch_raised(plan, leaves):
+    """Flag names the port raises for a bound plan re-run on other leaves."""
+    from supersonic_tpu_torch.ops.base import compile_plan
+
+    run, _, _ = compile_plan(plan)
+    _, flags, names = run(leaves)
+    return {n for n, f in zip(names, flags.tolist()) if f}
