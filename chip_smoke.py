@@ -2,29 +2,37 @@
 """Chip smoke test of the PyTorch/CUDA port (supersonic_tpu_torch).
 
 Drives the port's main paths on one CUDA card at real size: the headline
-query (BASELINE.json configs 4/5: FK build 1M x probe 100M, 64 groups) and
+query (BASELINE.json configs 4/5: FK build 1M x probe 100M, 64 groups),
 the multi-match join of bench_ops.py:188-206 ("join NOT_UNIQUE dup8")
-scaled to emit 100M rows (dim 1M rows, 8 per key; fact 12.5M rows):
+scaled to emit 100M rows (dim 1M rows, 8 per key; fact 12.5M rows), and
+the sorted merge of bench_ops.py:281-299 ("merge_union 2x4M") scaled to
+2 x 50M rows:
 
   1. environment: torch version, the card, nvidia-smi's name and power limit
   2. build: compiles the CUDA kernels from csrc/ (one nvcc per source, all
      at once; timed)
   3. each kernel against its plain PyTorch version on the card, at the
-     main paths' shapes: compaction, LUT gather and spread bit for bit
-     (ragged tails, capacities below the total, out-of-range indices,
-     payloads of 1, 2, 4 and 8 bytes, no source, repeated starts), the
-     integer segment-reduce modes exactly, f32 sums within rtol 1e-4.  Each
-     is timed beside its plain version, one PyTorch call computing the same
-     function where there is one, and its bound: the bytes it must move
-     over the card's 3.35 TB/s
+     main paths' shapes: compaction, LUT gather, spread and merge_sorted
+     bit for bit (ragged tails, capacities below the total, out-of-range
+     indices, payloads of 1, 2, 4 and 8 bytes, no source, repeated starts,
+     heavy ties, uneven and empty sides, live counts below capacity, int64
+     keys), the integer segment-reduce modes exactly, f32 sums within rtol
+     1e-4.  Each is timed beside its plain version, one PyTorch call
+     computing the same function where there is one, and its bound: the
+     bytes it must move over the card's 3.35 TB/s
   4. the main paths, each from zeroed launch counters: the headline plan of
      bench.py:73-86 through ``execute``, then Filter on its own and an
      unmasked UNIQUE join over a permuted primary key (the two operators
      that compact); then three joins: (a) the dup8 INNER join, 100M rows;
      (b) LEFT_OUTER NOT_UNIQUE under Filter(v > 0.5) with half the keys
      missing; (c) LEFT_OUTER UNIQUE of the 100M-row fact against half its
-     dim.  Each is checked against numpy
-  5. the median times of the headline query and of join (a)
+     dim; then two sorted merges: (d) MergeUnionAll of two 50M-row runs
+     sorted by (g ASC, v DESC), 100M rows; (e) a 4-way MergeUnionAll of
+     25M-row runs by (k INT64 nullable ASC, d DOUBLE DESC) with NaNs of
+     both signs and +-0, carrying a STRING column whose runs have four
+     dictionaries, then the UnionAll of the same runs.  Each is checked
+     against numpy
+  5. the median times of the headline query, of join (a) and of merge (d)
 
 It prints one JSON line of per-kernel results, then as its last line
 ``{"ok": true, "device": {...}}``.  It exits non-zero, and prints no
@@ -53,6 +61,8 @@ DUP_KEYS = DUP_DIM_ROWS // 8
 DUP_FACT_ROWS = 12_500_000    # probe rows: the join emits 100M
 DUP_OUT = 8 * DUP_FACT_ROWS
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
+MERGE_RUN_ROWS = 50_000_000   # bench_ops.py:281-299's 2 x 4M runs, scaled
+MERGE4_RUN_ROWS = 25_000_000  # path (e): 4 runs
 
 
 def log(msg):
@@ -78,6 +88,15 @@ def cuda_ms(torch, fn, reps=10):
 def bound_ms(nbytes):
     """Least time to move ``nbytes`` through device memory, in ms."""
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def moved_bytes(inputs, outputs):
+    """Bytes a call must move: each distinct input storage read once (a lane
+    passed both as a key and as a payload is one read), each output written
+    once."""
+    reads = {t.data_ptr(): t.numel() * t.element_size() for t in inputs}
+    return sum(reads.values()) + sum(t.numel() * t.element_size()
+                                     for t in outputs)
 
 
 def timings(torch, kernel, plain, library, nbytes):
@@ -395,6 +414,306 @@ def check_spread(torch, v):
     return {"max_abs_err": err, **t}
 
 
+def merge_data(torch, dev):
+    """Path (d)'s runs: bench_ops.py:283-294's data from default_rng(42) at
+    50M rows a run, with about 1% of v set to zeros of both signs; each run
+    sorted by (g ASC, v DESC) with a stable sort of a packed key on the
+    card.  The packed key is g in the high word and, in the low word,
+    0x3F800000 minus v's bits (v in [0, 1), -0 made +0): it orders exactly
+    as the plan's keys.  Returns per run (g, v, packed), sorted, on the
+    card."""
+    rng = np.random.default_rng(42)
+    n = MERGE_RUN_ROWS
+    gs = [rng.integers(0, 64, n).astype(np.int32) for _ in range(2)]
+    vs = [rng.random(n, dtype=np.float32) for _ in range(2)]
+    runs = []
+    for g, v in zip(gs, vs):
+        z = rng.random(n) < 0.01
+        v[z] = np.where(rng.random(int(z.sum())) < 0.5, np.float32(-0.0),
+                        np.float32(0.0))
+        g, v = torch.from_numpy(g).to(dev), torch.from_numpy(v).to(dev)
+        desc = 0x3F800000 - (v + 0.0).view(torch.int32).to(torch.int64)
+        packed = (g.to(torch.int64) << 32) | desc
+        packed, perm = torch.sort(packed, stable=True)
+        runs.append((g[perm], v[perm], packed))
+    return runs
+
+
+def merge_tables(T, runs, dev):
+    """Path (d)'s two sorted runs as tables (g INT32, v FLOAT) on ``dev``."""
+    ms = T.TupleSchema.of(("g", T.INT32, False), ("v", T.FLOAT, False))
+    return [T.Table.from_numpy(ms, {"g": g.cpu().numpy(),
+                                    "v": v.cpu().numpy()}, device=dev)
+            for g, v, _ in runs]
+
+
+def merge_plan(T, tables):
+    """bench_ops.py:296-299's plan: MergeUnionAll by (g ASC, v DESC)."""
+    return T.MergeUnionAll([("g", True), ("v", False)],
+                           [T.ScanTable(t) for t in tables])
+
+
+def merge_ranks(torch, packed):
+    """Output row of every row of each sorted run under a stable k-way merge
+    (ties: earlier run first), from searchsorted on the packed keys."""
+    ranks = []
+    for r, p in enumerate(packed):
+        rank = torch.arange(p.shape[0], device=p.device)
+        for s_, q in enumerate(packed):
+            if s_ != r:
+                rank += torch.searchsorted(q, p, right=s_ < r)
+        ranks.append(rank)
+    return ranks
+
+
+def merge4_data(torch, dev):
+    """Path (e)'s four 25M-row runs, made on the card from a seeded
+    generator: k INT64 in [0, 2^20), 5% NULL; d DOUBLE on a quarter grid
+    (ties, and -0.0 from rounding), 0.2% NaN and 0.2% NaN with the sign bit
+    set; s STRING codes into a per-run dictionary of 1000 words (run r holds
+    words 250 r .. 250 r + 999).  Each run sorted by (k ASC NULL first, d
+    DESC NaN last) with a stable sort of a packed key: null rank, k, then
+    the descending rank of d's quarter count 4 d (NaN after all)."""
+    g = torch.Generator(device=dev).manual_seed(43)
+    n = MERGE4_RUN_ROWS
+    qnan, neg_qnan = 0x7FF8000000000000, -0x0008000000000000  # f64 bits
+    runs = []
+    for r in range(4):
+        k = torch.randint(0, 1 << 20, (n,), device=dev, generator=g)
+        kvalid = torch.rand(n, device=dev, generator=g) >= 0.05
+        d = torch.round(torch.randn(n, device=dev, generator=g,
+                                    dtype=torch.float64) * 8) / 4
+        u = torch.rand(n, device=dev, generator=g)
+        # NaNs set by their bits: a float NaN operand may lose its sign
+        d = torch.where(u < 0.002, qnan, torch.where(
+            u < 0.004, neg_qnan, d.view(torch.int64))).view(torch.float64)
+        codes = torch.randint(0, 1000, (n,), device=dev, generator=g,
+                              dtype=torch.int32)
+        isnan = d.isnan()
+        rank = torch.where(isnan, (1 << 21) - 1, (1 << 20) - torch.where(
+            isnan, 0, d * 4).to(torch.int64))
+        packed = torch.where(kvalid, (1 << 62) | (k << 21) | rank, rank)
+        packed, perm = torch.sort(packed, stable=True)
+        runs.append({"k": k[perm], "kvalid": kvalid[perm], "d": d[perm],
+                     "s": codes[perm], "packed": packed,
+                     "words": [f"w{j:06d}" for j in range(250 * r,
+                                                          250 * r + 1000)]})
+    return runs
+
+
+def check_merge_sorted(torch, runs):
+    """The merge kernel bit for bit against merge_sorted_ref on the card:
+    at path (d)'s shape (2 x 50M rows; keys g and v's DESC code, payloads g
+    and v), then heavy ties, uneven and empty sides, sides of whole tiles,
+    live counts below capacity, an int64 key lane, 16 key lanes with 40
+    payloads (two merge launches), payloads of 1, 2, 4 and 8 bytes, and
+    out_cap equal to the live total."""
+    from supersonic_tpu_torch.kernels import library
+    from supersonic_tpu_torch.kernels.merge_sorted import (merge_sorted,
+                                                           merge_sorted_ref)
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    (ga, va, pa), (gb, vb, pb) = runs
+    ca, cb = [(p & 0xFFFFFFFF).to(torch.int32) for p in (pa, pb)]
+    n = ga.shape[0]
+
+    def lane(m, distinct, dtype=torch.int32, ordered=True):
+        x = torch.randint(0, distinct, (m,), device=dev, generator=g)
+        return (torch.sort(x).values if ordered else x).to(dtype)
+
+    def rand(m, dtype):
+        if dtype == torch.bool:
+            return torch.rand(m, device=dev, generator=g) < 0.5
+        if dtype.is_floating_point:
+            return torch.randn(m, device=dev, generator=g, dtype=dtype)
+        return torch.randint(-2**15, 2**15, (m,), device=dev, generator=g,
+                             dtype=dtype)
+
+    def rows(x):
+        return torch.full((), x, dtype=torch.int64, device=dev)
+
+    # (name, a_keys, a_pays, b_keys, b_pays, out_cap, a_rows, b_rows)
+    cases = [("main", [ga, ca], [ga, va], [gb, cb], [gb, vb], 2 * n, None,
+              None)]
+    ta, tb = lane(n, 5), lane(n, 5)
+    cases.append(("5 distinct keys", [ta], [rand(n, torch.int32)], [tb],
+                  [rand(n, torch.int32)], 2 * n, None, None))
+    del ta, tb
+    u = lane(70_000_000, 10**6)
+    cases.append(("70M against 3", [u], [rand(u.shape[0], torch.float32)],
+                  [lane(3, 10**6)], [rand(3, torch.float32)],
+                  u.shape[0] + 3, None, None))
+    e = lane(1_000_003, 100)
+    cases.append(("empty side", [e], [rand(e.shape[0], torch.int64)],
+                  [lane(0, 100)], [rand(0, torch.int64)], e.shape[0], None,
+                  None))
+    cases.append(("empty side first", [lane(0, 100)], [rand(0, torch.int64)],
+                  [e], [rand(e.shape[0], torch.int64)], e.shape[0], None,
+                  rows(e.shape[0] - 5)))
+    m = library().ss_merge_tile_rows(1) * 977
+    cases.append(("whole tiles", [lane(m, 37)], [rand(m, torch.int32)],
+                  [lane(m, 37)], [rand(m, torch.int32)], 2 * m, None, None))
+    cap = 1_000_000
+    dead = [torch.cat([lane(live, 1000), lane(cap - live, 1000,
+                                              ordered=False)])
+            for live in (700_001, 333_333)]
+    cases.append(("live counts below capacity", [dead[0]],
+                  [rand(cap, torch.int16)], [dead[1]],
+                  [rand(cap, torch.int16)], 2 * cap, rows(700_001),
+                  rows(333_333)))
+    cases.append(("out_cap = live total", [dead[0]], [rand(cap, torch.int32)],
+                  [dead[1]], [rand(cap, torch.int32)], 700_001 + 333_333,
+                  rows(700_001), rows(333_333)))
+
+    def two_lanes(m):
+        hi = torch.randint(0, 50, (m,), device=dev, generator=g,
+                           dtype=torch.int32)
+        lo = torch.randint(-2**62, 2**62, (m,), device=dev, generator=g)
+        lo = torch.where(torch.rand(m, device=dev, generator=g) < 0.5,
+                         lo % 7, lo)  # ties on both lanes
+        p = torch.sort(lo, stable=True).indices
+        p = p[torch.sort(hi[p], stable=True).indices]
+        return [hi[p], lo[p]]
+
+    cases.append(("int32 + int64 key lanes", two_lanes(2_000_000),
+                  [rand(2_000_000, torch.int32)], two_lanes(1_500_000),
+                  [rand(1_500_000, torch.int32)], 3_500_000, rows(1_999_000),
+                  None))
+    def many_lanes(m):  # 16 lanes of 3 values: ties down to the last
+        lanes = [torch.randint(0, 3, (m,), device=dev, generator=g,
+                               dtype=torch.int32 if i % 2 else torch.int64)
+                 for i in range(16)]
+        p = torch.arange(m, device=dev)
+        for x in reversed(lanes):
+            p = p[torch.sort(x[p], stable=True).indices]
+        return [x[p] for x in lanes]
+
+    cases.append(("16 key lanes, 40 payloads", many_lanes(300_000),
+                  [rand(300_000, torch.int32) for _ in range(40)],
+                  many_lanes(200_001),
+                  [rand(200_001, torch.int32) for _ in range(40)], 500_001,
+                  rows(299_999), None))
+    widths = (torch.bool, torch.int16, torch.float32, torch.float64,
+              torch.int64)
+    cases.append(("1/2/4/8-byte payloads", [lane(2_000_000, 1000)],
+                  [rand(2_000_000, t) for t in widths],
+                  [lane(1_000_000, 1000)],
+                  [rand(1_000_000, t) for t in widths], 3_000_000, None,
+                  None))
+    err = 0.0
+    for name, ak, ap, bk, bp, oc, ar, br in cases:
+        got = merge_sorted(ak, ap, bk, bp, oc, ar, br)
+        want = merge_sorted_ref(ak, ap, bk, bp, oc, ar, br)
+        for a, b in zip(got[0] + got[1], want[0] + want[1]):
+            assert a.shape[0] == oc and torch.equal(bits(a), bits(b)), \
+                f"merge_sorted {name}"
+            err = max(err, max_abs_diff(a, b))
+    del cases, got, want, u, e, dead
+    torch.cuda.synchronize()
+    # the library call: one stable sort of the concatenation's packed key,
+    # then one index_select per payload
+    packed = torch.cat([pa, pb])
+    cat = [torch.cat([ga, gb]), torch.cat([va, vb])]
+
+    def library_call():
+        idx = torch.sort(packed, stable=True).indices
+        return [p.index_select(0, idx) for p in cat]
+
+    assert all(torch.equal(bits(a), bits(b)) for a, b in zip(
+        merge_sorted([ga, ca], [ga, va], [gb, cb], [gb, vb], 2 * n)[1],
+        library_call())), "merge_sorted: the packed-key sort disagrees"
+    ins = [ga, ca, va, gb, cb, vb]
+    out = merge_sorted([ga, ca], [ga, va], [gb, cb], [gb, vb], 2 * n)
+    t = timings(torch,
+                lambda: merge_sorted([ga, ca], [ga, va], [gb, cb], [gb, vb],
+                                     2 * n),
+                lambda: merge_sorted_ref([ga, ca], [ga, va], [gb, cb],
+                                         [gb, vb], 2 * n),
+                library_call, moved_bytes(ins, out[0] + out[1]))
+    # as path (d)'s last fold step calls it: no key outputs
+    last_ms = cuda_ms(torch, lambda: merge_sorted(
+        [ga, ca], [ga, va], [gb, cb], [gb, vb], 2 * n, keep_keys=False))
+    last_bound = bound_ms(moved_bytes(ins, out[1]))
+    del out
+    log(f"kernel merge_sorted: bit-exact on 11 cases (2 x {n} rows; "
+        f"heavy ties, 70M against 3, empty sides, whole tiles, live counts "
+        f"below capacity, out_cap = live total, int64 key lane, 16 key lanes "
+        f"with 40 payloads, 1/2/4/8-byte payloads); {t}; without key "
+        f"outputs, as (d)'s fold step: {last_ms:.6f} ms, bound "
+        f"{last_bound:.6f} ms")
+    return {"max_abs_err": err, **t}
+
+
+def check_merge_d(torch, out, runs):
+    """Path (d): 100M rows in exact merge order: each run's rows at their
+    searchsorted ranks."""
+    total = sum(r[0].shape[0] for r in runs)
+    assert int(out.num_rows) == total, "(d): row count"
+    ranks = merge_ranks(torch, [r[2] for r in runs])
+    for col, i in (("g", 0), ("v", 1)):
+        want = torch.empty(total, dtype=runs[0][i].dtype, device=out.device)
+        for run, rank in zip(runs, ranks):
+            want[rank] = run[i]
+        assert out.columns[col].valid is None
+        assert torch.equal(bits(out.columns[col].values[:total]),
+                           bits(want)), f"(d): column {col}"
+    return total
+
+
+def check_merge_e(torch, out, runs):
+    """Path (e): 100M rows in exact merge order (NULL k first, NaN d last,
+    ties by run), d bit for bit (NaN signs kept), k and its NULLs, and s
+    remapped into the merged dictionary."""
+    dev = out.device
+    total = sum(r["k"].shape[0] for r in runs)
+    assert int(out.num_rows) == total, "(e): row count"
+    merged = sorted(set().union(*[r["words"] for r in runs]))
+    assert out.dicts["s"].values == tuple(merged), "(e): dictionary"
+    ranks = merge_ranks(torch, [r["packed"] for r in runs])
+    want = {c: torch.empty(total, dtype=runs[0][c].dtype, device=dev)
+            for c in ("k", "kvalid", "d", "s")}
+    for run, rank in zip(runs, ranks):
+        for c in ("k", "kvalid", "d"):
+            want[c][rank] = run[c]
+        remap = torch.from_numpy(np.searchsorted(merged, run["words"])).to(
+            dev)
+        want["s"][rank] = remap[run["s"].long()].to(torch.int32)
+    k = out.columns["k"]
+    valid = want["kvalid"]
+    assert torch.equal(k.valid[:total], valid), "(e): NULLs of k"
+    assert torch.equal(torch.where(valid, k.values[:total], 0),
+                       torch.where(valid, want["k"], 0)), "(e): column k"
+    d = out.columns["d"].values[:total]
+    assert torch.equal(bits(d), bits(want["d"])), "(e): column d"
+    assert torch.equal(out.columns["s"].values[:total], want["s"]), \
+        "(e): column s"
+    nan = want["d"].isnan()
+    assert bool(torch.signbit(want["d"][nan]).any()), "(e): no -NaN"
+    return total, int((~valid).sum()), int(nan.sum())
+
+
+def check_union(torch, out, runs):
+    """UnionAll of path (e)'s runs: the runs one after another, s remapped
+    into the merged dictionary."""
+    total = sum(r["k"].shape[0] for r in runs)
+    assert int(out.num_rows) == total, "UnionAll: row count"
+    merged = sorted(set().union(*[r["words"] for r in runs]))
+    assert out.dicts["s"].values == tuple(merged), "UnionAll: dictionary"
+    remaps = [torch.from_numpy(np.searchsorted(merged, r["words"])).to(
+        out.device)[r["s"].long()].to(torch.int32) for r in runs]
+    valid = torch.cat([r["kvalid"] for r in runs])
+    k = out.columns["k"]
+    assert torch.equal(k.valid[:total], valid), "UnionAll: NULLs of k"
+    assert torch.equal(torch.where(valid, k.values[:total], 0), torch.where(
+        valid, torch.cat([r["k"] for r in runs]), 0)), "UnionAll: column k"
+    assert torch.equal(bits(out.columns["d"].values[:total]),
+                       bits(torch.cat([r["d"] for r in runs]))), \
+        "UnionAll: column d"
+    assert torch.equal(out.columns["s"].values[:total], torch.cat(remaps)), \
+        "UnionAll: column s"
+
+
 def check_headline(out, fact, dim):
     """Rows of the headline query against a float64 numpy computation
     (bench.py:42-52).  Groups and counts match exactly.  Sums match within
@@ -524,6 +843,8 @@ def main():
         "spread": check_spread(torch, torch.from_numpy(dfact["v"]).to(dev)),
     }
     del fk, v, dim_g, keep, ids, all_ids
+    mruns = merge_data(torch, dev)
+    results["merge_sorted"] = check_merge_sorted(torch, mruns)
 
     # 4. the main paths, each from zeroed launch counters
     fs, ds = schemas(T)
@@ -610,6 +931,32 @@ def main():
     log(f"joins match numpy in order: (a) {DUP_OUT} rows; (b) {nb[0]} rows, "
         f"{nb[1]} with a NULL w; (c) {FACT_ROWS} rows, {nulls} with a NULL g")
 
+    merge_t = merge_tables(T, mruns, dev)
+    out = drive("(d) MergeUnionAll 2 x 50M", merge_plan(T, merge_t),
+                ("merge_sorted",))
+    n_d = check_merge_d(torch, out, mruns)
+    del out
+    m4 = merge4_data(torch, dev)
+    s4 = T.TupleSchema.of(("k", T.INT64, True), ("d", T.DOUBLE, False),
+                          ("s", T.STRING, False))
+    m4_t = [T.Table.from_numpy(
+        s4, {"k": (r["k"].cpu().numpy(), r["kvalid"].cpu().numpy()),
+             "d": r["d"].cpu().numpy(), "s": r["s"].cpu().numpy()},
+        dicts={"s": T.Dictionary(tuple(r["words"]))}, device=dev)
+        for r in m4]
+    out = drive("(e) 4-way MergeUnionAll", T.MergeUnionAll(
+        [("k", True), ("d", False)], [T.ScanTable(t) for t in m4_t]),
+        ("merge_sorted", "lut_gather"))
+    n_e = check_merge_e(torch, out, m4)
+    del out
+    out = drive("UnionAll of (e)'s runs", T.UnionAll(
+        *[T.ScanTable(t) for t in m4_t]), ("lut_gather",))
+    check_union(torch, out, m4)
+    del out, m4, m4_t
+    log(f"merges match numpy in order: (d) {n_d} rows; (e) {n_e[0]} rows, "
+        f"{n_e[1]} with a NULL k, {n_e[2]} with a NaN d; the UnionAll of "
+        f"(e)'s runs matches their concatenation")
+
     # 5. times, host clock around execute (which ends in a sync)
     def median_ms(plan_fn, label, size):
         times = []
@@ -628,6 +975,8 @@ def main():
     median_ms(lambda: dup8_plan(T, dfact_t, ddim_t, T.JoinType.INNER, False),
               "(a) dup8 INNER join", f"{DUP_FACT_ROWS} x {DUP_DIM_ROWS} -> "
               f"{DUP_OUT} rows")
+    median_ms(lambda: merge_plan(T, merge_t), "(d) MergeUnionAll",
+              f"2 x {MERGE_RUN_ROWS} -> {2 * MERGE_RUN_ROWS} rows")
 
     meta = {
         "compaction": ("supersonic_tpu_torch/csrc/compaction.cu",
@@ -641,6 +990,8 @@ def main():
             "supersonic_tpu/kernels/segment_reduce.py:103"),
         "spread": ("supersonic_tpu_torch/csrc/spread.cu",
                    "supersonic_tpu/kernels/spread.py:333"),
+        "merge_sorted": ("supersonic_tpu_torch/csrc/merge_sorted.cu",
+                         "supersonic_tpu/kernels/merge_sorted.py:272"),
     }
     print(smi)
     print(json.dumps({"kernels": [

@@ -6,14 +6,16 @@ card.
 fact x 1M dim rows, 64 groups, from default_rng(42)) and profiles the
 headline plan; ``dup8`` builds chip_smoke.py's dup8 tables (12.5M fact x 1M
 dim rows, 8 dim rows per key) and profiles join (a), the NOT_UNIQUE INNER
-join into 100M rows.  The plan runs twice to warm up, then three runs are
+join into 100M rows; ``merge`` builds chip_smoke.py's two sorted 50M-row
+runs and profiles merge (d), the MergeUnionAll of bench_ops.py:281-299 into
+100M rows.  The plan runs twice to warm up, then three runs are
 profiled with torch.profiler.  Prints the card (nvidia-smi name and power
 limit), the wall time per run, the device kernel time per run (self device
 time summed over CUDA kernel rows only, since aten op rows repeat their
 kernels' time), the busy share (device / wall), the peak device memory
 above the inputs, and the table of ops and kernels by device time.
 
-    python3 scripts/profile_torch_headline.py [headline|dup8]
+    python3 scripts/profile_torch_headline.py [headline|dup8|merge]
 """
 import pathlib
 import subprocess
@@ -48,14 +50,21 @@ def main():
     elif which == "dup8":
         fact, dim, _ = chip_smoke.dup8_data()
         fs, ds = chip_smoke.dup8_schemas(T)
+    elif which == "merge":
+        runs = chip_smoke.merge_tables(T, chip_smoke.merge_data(torch, dev),
+                                       dev)
+        torch.cuda.empty_cache()
     else:
         sys.exit(f"profile_torch_headline: unknown plan {which!r}")
-    fact_t = T.Table.from_numpy(fs, fact, device=dev)
-    dim_t = T.Table.from_numpy(ds, dim, device=dev)
+    if which != "merge":
+        fact_t = T.Table.from_numpy(fs, fact, device=dev)
+        dim_t = T.Table.from_numpy(ds, dim, device=dev)
 
     def plan():
         if which == "headline":
             return chip_smoke.headline_plan(T, fact_t, dim_t)
+        if which == "merge":
+            return chip_smoke.merge_plan(T, runs)
         return chip_smoke.dup8_plan(T, fact_t, dim_t, T.JoinType.INNER, False)
 
     print(f"plan: {which}")

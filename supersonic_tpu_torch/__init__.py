@@ -8,8 +8,8 @@ CUDA C++ (``csrc/``) and built at their first launch on a CUDA tensor; on
 CPU tensors every kernel wrapper runs its plain PyTorch version.  See
 ROADMAP.md for what is ported and what is still to come.
 """
-from .types import (BOOL, DOUBLE, FLOAT, INT32, INT64, UINT64, DataType,
-                    TypeError_)
+from .types import (BINARY, BOOL, DOUBLE, FLOAT, INT32, INT64, STRING,
+                    UINT64, DataType, TypeError_)
 from .schema import Attribute, SchemaError, TupleSchema
 from .batch import Column, Table, gather_table
 from .dictionary import Dictionary

@@ -5,8 +5,9 @@ block.h:55-489):
 
   * ``Column`` = one dense value tensor + optional bool validity tensor.
   * ``Table``  = schema + dict of Columns + ``num_rows`` + an explicit
-                 ``device``.  STRING/BINARY would be int32 codes with a
-                 host-side Dictionary (not carried yet).
+                 ``device``.  STRING/BINARY columns are int32 codes into a
+                 sorted host-side Dictionary (``dicts[name]``), so code
+                 order is value order.
 
 Decision: tables stay CAPACITY-PADDED, as in the JAX package.  Every
 column has a static capacity (``values.shape[0]``); ``num_rows`` is a
@@ -33,9 +34,10 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from .dictionary import encode
 from .schema import SchemaError, TupleSchema
-from .types import (DataType, check_column_type, physical_dtype,
-                    torch_dtype)
+from .types import (DataType, check_column_type, is_variable_length,
+                    physical_dtype, torch_dtype)
 
 _STAT_TYPES = (DataType.INT32, DataType.INT64)
 
@@ -108,14 +110,18 @@ class Table:
         so both engines run on identical data.
 
         ``arrays[name]`` is a value ndarray, or a ``(values, valid)`` pair
-        for a nullable column.  Rows past ``len`` up to ``capacity`` are
-        padding.  The positional order is the JAX package's
-        ``from_data(schema, data, capacity, dicts)``.
+        for a nullable column; a STRING/BINARY column gives its int32 codes
+        and ``dicts[name]`` its Dictionary.  Rows past ``len`` up to
+        ``capacity`` are padding.  The positional order is the JAX
+        package's ``from_data(schema, data, capacity, dicts)``.
         """
         for a in schema:
             check_column_type(a.type)
             if a.name not in arrays:
                 raise SchemaError(f"column {a.name!r} missing from data")
+            if is_variable_length(a.type) and a.name not in (dicts or {}):
+                raise SchemaError(f"{a.type.value} column {a.name!r} needs "
+                                  "its dictionary in dicts")
         host: dict = {}
         n = None
         for a in schema:
@@ -164,20 +170,27 @@ class Table:
                   capacity: Optional[int] = None, dicts: Optional[dict] = None,
                   *, device="cuda") -> "Table":
         """Build a Table from python sequences (None entries = NULL) or
-        numpy arrays; the arguments are those of ``from_numpy``."""
+        numpy arrays; the arguments are those of ``from_numpy``.  A
+        STRING/BINARY column given as str/bytes values (None = NULL) is
+        dictionary-encoded, unless ``dicts`` has its dictionary: then the
+        data are its codes."""
         arrays = {}
+        dicts = dict(dicts or {})
         for a in schema:
             check_column_type(a.type)
             if a.name not in data:
                 raise SchemaError(f"column {a.name!r} missing from data")
             raw = data[a.name]
-            if isinstance(raw, np.ndarray) and raw.dtype != object:
+            if is_variable_length(a.type) and a.name not in dicts:
+                vals, valid, dicts[a.name] = encode(list(raw))
+            elif isinstance(raw, np.ndarray) and raw.dtype != object:
                 arrays[a.name] = raw
                 continue
-            lst = list(raw)
-            valid = np.array([v is not None for v in lst], dtype=bool)
-            vals = np.array([v if v is not None else 0 for v in lst],
-                            dtype=physical_dtype(a.type))
+            else:
+                lst = list(raw)
+                valid = np.array([v is not None for v in lst], dtype=bool)
+                vals = np.array([v if v is not None else 0 for v in lst],
+                                dtype=physical_dtype(a.type))
             if not a.nullable and not valid.all():
                 raise SchemaError(f"NULL in non-nullable column {a.name!r}")
             arrays[a.name] = (vals, valid) if a.nullable else vals

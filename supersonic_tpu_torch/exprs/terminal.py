@@ -8,7 +8,8 @@ from __future__ import annotations
 import torch
 
 from ..schema import Attribute
-from ..types import DataType, check_column_type, torch_dtype
+from ..types import (DataType, check_column_type,
+                     is_variable_length, torch_dtype)
 from .base import BoundExpression, EvalContext, Expression, ExprValue
 
 
@@ -32,6 +33,10 @@ class Const(Expression):
     def do_bind(self, schema, dicts):
         t = self.type_
         check_column_type(t)
+        if is_variable_length(t):
+            raise NotImplementedError(
+                f"{t.value} constants are not ported yet (ROADMAP.md queue 1 "
+                "item 14)")
         dtype = torch_dtype(t)
         raw = bool(self.value) if t == DataType.BOOL else self.value
 

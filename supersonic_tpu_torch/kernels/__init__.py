@@ -9,13 +9,14 @@ hash of the sources, so an edited source rebuilds) and loads it with
 package builds nothing: the CPU tests import every module.
 
 Each kernel module (``compaction``, ``lut_gather``, ``segment_reduce``,
-``spread``) holds its wrappers and their plain PyTorch versions.  A wrapper
-given CPU tensors runs the plain version; given CUDA tensors it launches
-its kernel or raises.  A wrapper adds one to ``launches[name]`` right after
-each kernel launch it makes, and nowhere else: compaction launches a count
-and a scatter kernel, segment_reduce (and segment_reduce_small, one request
-of the same kernel) a partial and a final pass, spread a bounds and an
-expand kernel, lut_gather one kernel.
+``spread``, ``merge_sorted``) holds its wrappers and their plain PyTorch
+versions.  A wrapper given CPU tensors runs the plain version; given CUDA
+tensors it launches its kernel or raises.  A wrapper adds one to
+``launches[name]`` right after each kernel launch it makes, and nowhere
+else: compaction launches a count and a scatter kernel, segment_reduce (and
+segment_reduce_small, one request of the same kernel) a partial and a final
+pass, spread a bounds and an expand kernel, merge_sorted a splits and a
+merge kernel, lut_gather one kernel.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ MAX_ARRAYS = 32
 # kernel name -> launches since the last reset_launches()
 launches: dict[str, int] = {"compaction": 0, "lut_gather": 0,
                             "segment_reduce": 0, "segment_reduce_small": 0,
-                            "spread": 0}
+                            "spread": 0, "merge_sorted": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -127,6 +128,9 @@ def _bind(lib) -> None:
         "ss_spread_tile_rows": [],
         "ss_spread_bounds": [P, I, L, P, P],
         "ss_spread_expand": [P, L, P, I, ctypes.c_uint, PP, PP, IP, P],
+        "ss_merge_tile_rows": [I],
+        "ss_merge_splits": [I, PP, PP, IP, P, P, L, L, L, P, P],
+        "ss_merge_sorted": [I, I, PP, PP, PP, IP, P, P, L, P, P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -154,8 +158,13 @@ def check(code: int, what: str) -> None:
         raise KernelError(f"{what}: CUDA error {code} ({msg})")
 
 
+def addr_array(addresses) -> ctypes.Array:
+    """A C array of device addresses (0 for a null pointer)."""
+    return (ctypes.c_void_p * len(addresses))(*addresses)
+
+
 def ptr_array(tensors) -> ctypes.Array:
-    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    return addr_array([t.data_ptr() for t in tensors])
 
 
 def int_array(values) -> ctypes.Array:

@@ -20,7 +20,7 @@ import torch
 from ..batch import Table, gather_table
 from ..schema import Attribute, TupleSchema
 from .base import BindContext, BoundOperation, Operation, RunContext
-from .keys import descending_code, monotone_code
+from .keys import key_operands
 
 
 @dataclass(frozen=True)
@@ -51,31 +51,13 @@ class SortOrder:
         return [k.ascending for k in self.keys]
 
 
-def _key_operands(table: Table, order: SortOrder, pad_mask) -> list:
-    """[pad] + per key [null_rank?, code], most significant first."""
-    ops = [pad_mask.to(torch.int32)]
-    for k in order.keys:
-        attr = table.schema.lookup(k.name)
-        c = table.columns[k.name]
-        code = monotone_code(c.values, attr.type)
-        if not k.ascending:
-            code = descending_code(code)
-        if c.valid is not None:
-            # NULL first ascending, last descending
-            ops.append((c.valid if k.ascending else ~c.valid).to(torch.int32))
-            code = torch.where(c.valid, code, torch.zeros_like(code))
-        ops.append(code)
-    return ops
-
-
 def sort_permutation(table: Table, order: SortOrder,
                      pad_mask=None) -> torch.Tensor:
     """int64 row permutation realizing the sort (reference:
     SortPermutation, sort.cc:781).  Stable: equal keys keep input order."""
-    if pad_mask is None:
-        pad_mask = ~table.row_mask()
+    ops = key_operands(table, order.names(), order.ascendings(), pad_mask)
     perm = torch.arange(table.capacity, device=table.device)
-    for op in reversed(_key_operands(table, order, pad_mask)):
+    for op in reversed(ops):
         perm = perm[torch.sort(op[perm], stable=True).indices]
     return perm
 

@@ -6,10 +6,11 @@ a ``DataType -> torch.dtype`` map in place of the jnp one.  This is the
 port's own copy: importing anything from ``supersonic_tpu`` runs that
 package's ``__init__``, which imports JAX.
 
-The port carries columns of INT32, INT64, FLOAT, DOUBLE and BOOL.  UINT64
-appears only as the default output type of COUNT; it is stored as int64
-(counts never reach 2^63) and read back as uint64 by ``Table.to_numpy``.
-Every other type raises ``NotImplementedError`` naming its roadmap item.
+The port carries columns of INT32, INT64, FLOAT, DOUBLE, BOOL, and STRING
+and BINARY as int32 codes into a sorted host dictionary.  UINT64 appears
+only as the default output type of COUNT; it is stored as int64 (counts
+never reach 2^63) and read back as uint64 by ``Table.to_numpy``.  Every
+other type raises ``NotImplementedError`` naming its roadmap item.
 """
 from __future__ import annotations
 
@@ -82,7 +83,8 @@ _TRAITS: dict[DataType, TypeTraits] = {
 
 # Column types the port carries (ROADMAP.md queue 1 item 14 adds the rest).
 COLUMN_TYPES = (DataType.INT32, DataType.INT64, DataType.FLOAT,
-                DataType.DOUBLE, DataType.BOOL)
+                DataType.DOUBLE, DataType.BOOL, DataType.STRING,
+                DataType.BINARY)
 
 _TORCH: dict[DataType, torch.dtype] = {
     DataType.INT32: torch.int32,
@@ -91,6 +93,8 @@ _TORCH: dict[DataType, torch.dtype] = {
     DataType.FLOAT: torch.float32,
     DataType.DOUBLE: torch.float64,
     DataType.BOOL: torch.bool,
+    DataType.STRING: torch.int32,  # dictionary codes
+    DataType.BINARY: torch.int32,
 }
 
 

@@ -19,7 +19,9 @@ def test_import_leaves_jax_out():
         "supersonic_tpu_torch.kernels.compaction, "
         "supersonic_tpu_torch.kernels.lut_gather, "
         "supersonic_tpu_torch.kernels.segment_reduce, "
-        "supersonic_tpu_torch.kernels.spread; "
+        "supersonic_tpu_torch.kernels.spread, "
+        "supersonic_tpu_torch.kernels.merge_sorted, "
+        "supersonic_tpu_torch.ops.merge, supersonic_tpu_torch.ops.union; "
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'supersonic_tpu' "
         "or m.startswith('supersonic_tpu.')); "
@@ -50,6 +52,6 @@ def test_sources_import_no_jax():
 def test_kernel_sources_are_packaged():
     names = {p.name for p in (PKG / "csrc").iterdir()}
     assert {"common.cuh", "compaction.cu", "lut_gather.cu",
-            "segment_reduce.cu", "spread.cu"} <= names
+            "segment_reduce.cu", "spread.cu", "merge_sorted.cu"} <= names
     pyproject = (REPO / "pyproject.toml").read_text()
     assert '"supersonic_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in pyproject

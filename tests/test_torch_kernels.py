@@ -16,6 +16,7 @@ from supersonic_tpu_torch import kernels
 from supersonic_tpu_torch.kernels.compaction import (compact_arrays_ref,
                                                      compact_kernel)
 from supersonic_tpu_torch.kernels.lut_gather import lut_gather
+from supersonic_tpu_torch.kernels.merge_sorted import merge_sorted
 from supersonic_tpu_torch.kernels.segment_reduce import segment_reduce_multi
 from supersonic_tpu_torch.kernels.spread import spread_kernel
 
@@ -162,6 +163,9 @@ def test_cpu_wrappers_launch_no_kernel():
     segment_reduce_multi([(torch.ones(8), "sum")],
                          torch.zeros(8, dtype=torch.int32), 2)
     spread_kernel([torch.arange(8)], torch.arange(8, dtype=torch.int32), 9)
+    k = torch.arange(8, dtype=torch.int32)
+    merge_sorted([k], [k], [k], [k], 16)
     assert kernels.launches == {"compaction": 0, "lut_gather": 0,
                                 "segment_reduce": 0,
-                                "segment_reduce_small": 0, "spread": 0}
+                                "segment_reduce_small": 0, "spread": 0,
+                                "merge_sorted": 0}

@@ -222,9 +222,21 @@ def test_outside_the_slice_raises_not_implemented(make):
 
 
 def test_string_columns_are_not_ported():
+    """STRING columns are ported now (dictionary codes, as in the JAX
+    package); string constants and the other types of ROADMAP.md queue 1
+    item 14 still raise."""
+    t = T.Table.from_data(T.TupleSchema.of(("s", T.DataType.STRING)),
+                          {"s": ["b", "a", None, "b"]}, device="cpu")
+    j = J.Table.from_data(J.TupleSchema.of(("s", J.DataType.STRING)),
+                          {"s": ["b", "a", None, "b"]})
+    assert t.to_pylist() == j.to_pylist() == [("b",), ("a",), (None,),
+                                              ("b",)]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.Table.from_data(T.TupleSchema.of(("s", T.DataType.STRING)),
-                          {"s": ["a"]}, device="cpu")
+        T.Table.from_data(T.TupleSchema.of(("d", T.DataType.DATE)),
+                          {"d": [1]}, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        T.execute(T.Filter(T.col("s") > T.Const("a", T.DataType.STRING),
+                           T.ScanTable(t)))
 
 
 def test_composite_keys_match_jax():
