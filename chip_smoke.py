@@ -15,11 +15,15 @@ the sorted merge of bench_ops.py:281-299 ("merge_union 2x4M") scaled to
      main paths' shapes: compaction, LUT gather, spread and merge_sorted
      bit for bit (ragged tails, capacities below the total, out-of-range
      indices, payloads of 1, 2, 4 and 8 bytes, no source, repeated starts,
-     heavy ties, uneven and empty sides, live counts below capacity, int64
-     keys), the integer segment-reduce modes exactly, f32 sums within rtol
-     1e-4.  Each is timed beside its plain version, one PyTorch call
-     computing the same function where there is one, and its bound: the
-     bytes it must move over the card's 3.35 TB/s
+     heavy ties, uneven and empty sides, live counts below capacity; the
+     LUT gather's specialised lane signatures, an index slice at an odd
+     offset and its generic route; the merge over raw int32, int64,
+     float32, float64 (NaNs of both signs, +-0), bool and STRING-code keys,
+     ASC and DESC, with and without NULLs), the integer segment-reduce
+     modes exactly, f32 sums within rtol 1e-4.  Each is timed beside its
+     plain version, one PyTorch call computing the same function where
+     there is one, and its bound: the bytes it must move over the card's
+     3.35 TB/s
   4. the main paths, each from zeroed launch counters: the headline plan of
      bench.py:73-86 through ``execute``, then Filter on its own and an
      unmasked UNIQUE join over a permuted primary key (the two operators
@@ -31,8 +35,10 @@ the sorted merge of bench_ops.py:281-299 ("merge_union 2x4M") scaled to
      25M-row runs by (k INT64 nullable ASC, d DOUBLE DESC) with NaNs of
      both signs and +-0, carrying a STRING column whose runs have four
      dictionaries, then the UnionAll of the same runs.  Each is checked
-     against numpy
-  5. the median times of the headline query, of join (a) and of merge (d)
+     against numpy.  Then (e)'s three fold steps, each timed with its
+     bound and its launches
+  5. the median times of the headline query, of join (a) and of merges (d)
+     and (e)
 
 It prints one JSON line of per-kernel results, then as its last line
 ``{"ok": true, "device": {...}}``.  It exits non-zero, and prints no
@@ -69,8 +75,10 @@ def log(msg):
     print(msg, flush=True)
 
 
-def cuda_ms(torch, fn, reps=10):
-    """Median CUDA-event time of fn() in ms, after one warm-up call."""
+def cuda_ms(torch, fn, reps=10, calls=5):
+    """Time of one fn() in ms, after one warm-up call: the median over
+    ``reps`` windows of CUDA-event time over ``calls`` back-to-back calls,
+    so the host's launch work overlaps the device's and is not counted."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -78,10 +86,11 @@ def cuda_ms(torch, fn, reps=10):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -224,43 +233,85 @@ def check_compaction(torch, fk, v, keep):
                 n * (1 + 4 + 4) + kept * (4 + 4))
     log(f"kernel compaction: bit-exact on {len(cases)} cases "
         f"(n={n}, kept={kept}); {t}")
+    # each call shape of the driven paths: rows, 4-byte lanes, kept share
+    g = torch.Generator(device="cuda").manual_seed(8)
+    shapes = [("Filter", n, 2, None), ("unmasked UNIQUE join", n, 3, None),
+              ("(a) lhs rows that emit", DUP_FACT_ROWS, 3, 1.0),
+              ("(b) lhs rows that emit", DUP_FACT_ROWS, 4, 0.5)]
+    per_call = []
+    distinct = [fk, v, fk ^ 1, v * 2]
+    for name, rows, lanes, share in shapes:
+        msk = keep[:rows] if share is None else (
+            torch.rand(rows, device="cuda", generator=g) < share)
+        pays = [x[:rows] for x in distinct[:lanes]]
+        k = int(msk.sum())
+        ms = cuda_ms(torch, lambda: compact_kernel(pays, msk, rows))
+        bound = bound_ms(rows * (1 + 4 * lanes) + k * 4 * lanes)
+        per_call.append({"call": name, "rows": rows, "lanes": lanes,
+                         "kept": k, "ms": ms, "bound_ms": bound,
+                         "over_bound_ms": ms - bound})
+    del distinct
+    log(f"compaction per call shape: {json.dumps(per_call)}")
     return {"max_abs_err": err, **t}
 
 
 def check_lut_gather(torch, fk, dim_g):
+    """The LUT gather bit for bit against its plain version: each lane
+    signature the joins use (specialised kernels), 8-byte and 32-lane sets
+    (the generic kernel), a length that is not a multiple of 8, an index
+    slice at an odd offset, indices out of range both ways, and the staged
+    route; then timed at the row-id probe's shape."""
     from supersonic_tpu_torch.kernels.lut_gather import (lut_gather,
                                                          lut_gather_ref,
-                                                         staged)
+                                                         specialised, staged)
 
+    dev = fk.device
     K = dim_g.shape[0]
     idx = fk.clone()
     idx[:1000] = -5          # out of range below
     idx[1000:2000] = K + 7   # out of range above
-    flag = torch.ones(K, dtype=torch.bool, device="cuda")
+    flag = torch.arange(K, device=dev) % 3 != 0
+    start = torch.arange(K, dtype=torch.int32, device=dev) * 8
+    v = torch.linspace(-1, 1, K, device=dev)
     small_k = 2048
-    small = [torch.arange(small_k, dtype=torch.int32, device="cuda") * 3,
-             torch.linspace(-1, 1, small_k, device="cuda"),
-             torch.arange(small_k, device="cuda") % 3 == 0,
-             torch.arange(small_k, device="cuda", dtype=torch.float64) / 7]
+    small = [torch.arange(small_k, dtype=torch.int32, device=dev) * 3,
+             torch.linspace(-1, 1, small_k, device=dev),
+             torch.arange(small_k, device=dev) % 3 == 0,
+             torch.arange(small_k, device=dev, dtype=torch.float64) / 7]
     sidx = (fk % (small_k + 64) - 32).to(torch.int32)
-    cases = [("row-id probe", [dim_g], idx, K),
-             ("fat-LUT probe", [dim_g, flag], idx, K),
-             ("staged", small, sidx, small_k)]
+    ragged = idx[1:12_345_679]  # odd offset: not 16-byte aligned; n % 8 = 6
+    cases = [
+        # (name, luts, idx, K, specialised)
+        ("row-id probe", [dim_g], idx, K, True),
+        ("CSR (count, start)", [dim_g, start], idx, K, True),
+        ("fat-LUT probe", [dim_g, flag], idx, K, True),
+        ("two values and the flag", [dim_g, v, flag], idx, K, True),
+        ("three 4-byte lanes", [v, dim_g, start], ragged, K, True),
+        ("odd-offset slice, n % 8 = 6", [dim_g, flag], ragged, K, True),
+        ("8-byte lanes", [dim_g.double(), dim_g.long()], ragged, K, False),
+        ("32 lanes", [dim_g] * 32, idx[:3_000_001], K, False),
+        ("staged", small, sidx, small_k, False),
+        ("staged, one lane", small[:1], sidx[3:], small_k, True),
+    ]
     err = 0.0
-    for name, luts, ix, k in cases:
+    for name, luts, ix, k, spec in cases:
+        assert specialised(luts) == spec, f"lut_gather {name}: route"
         got = lut_gather(luts, ix, k)
         want = lut_gather_ref(luts, ix, k)
         for a, b in zip(got, want):
             assert torch.equal(bits(a), bits(b)), f"lut_gather {name}"
             err = max(err, max_abs_diff(a, b))
     assert not staged([dim_g], K) and staged(small, small_k)
+    del cases, got, want, ragged
     torch.cuda.synchronize()
     n = fk.shape[0]  # fk lies in [0, K): index_select needs no clip
     t = timings(torch, lambda: lut_gather([dim_g], fk, K),
                 lambda: lut_gather_ref([dim_g], fk, K),
                 lambda: torch.index_select(dim_g, 0, fk),
                 n * 4 + K * 4 + n * 4)
-    log(f"kernel lut_gather: bit-exact on {len(cases)} cases (n={n}, K={K}); "
+    log(f"kernel lut_gather: bit-exact on 10 cases (n={n}, K={K}; "
+        f"specialised: one, two and three 4-byte lanes, with a 1-byte flag, "
+        f"an odd-offset slice; generic: 8-byte lanes, 32 lanes; staged); "
         f"{t}")
     return {"max_abs_err": err, **t}
 
@@ -501,22 +552,56 @@ def merge4_data(torch, dev):
     return runs
 
 
+def merge4_tables(T, runs, dev):
+    """Path (e)'s four sorted runs as tables (k INT64 nullable, d DOUBLE,
+    s STRING with the run's dictionary) on ``dev``."""
+    s4 = T.TupleSchema.of(("k", T.INT64, True), ("d", T.DOUBLE, False),
+                          ("s", T.STRING, False))
+    return [T.Table.from_numpy(
+        s4, {"k": (r["k"].cpu().numpy(), r["kvalid"].cpu().numpy()),
+             "d": r["d"].cpu().numpy(), "s": r["s"].cpu().numpy()},
+        dicts={"s": T.Dictionary(tuple(r["words"]))}, device=dev)
+        for r in runs]
+
+
+def merge4_plan(T, tables):
+    """Path (e)'s plan: MergeUnionAll by (k ASC, d DESC)."""
+    return T.MergeUnionAll([("k", True), ("d", False)],
+                           [T.ScanTable(t) for t in tables])
+
+
+def sorted_side(torch, lanes, keys):
+    """The lanes of one merge side in the merge order of ``keys`` (stable
+    passes over the plain version's compare words)."""
+    from supersonic_tpu_torch.kernels.merge_sorted import coded_words
+
+    perm = torch.arange(lanes[0].shape[0], device=lanes[0].device)
+    for w in reversed(coded_words(lanes, keys)):
+        perm = perm[torch.sort(w[perm], stable=True).indices]
+    return [x[perm] for x in lanes]
+
+
 def check_merge_sorted(torch, runs):
     """The merge kernel bit for bit against merge_sorted_ref on the card:
-    at path (d)'s shape (2 x 50M rows; keys g and v's DESC code, payloads g
-    and v), then heavy ties, uneven and empty sides, sides of whole tiles,
-    live counts below capacity, an int64 key lane, 16 key lanes with 40
-    payloads (two merge launches), payloads of 1, 2, 4 and 8 bytes, and
-    out_cap equal to the live total."""
-    from supersonic_tpu_torch.kernels import library
-    from supersonic_tpu_torch.kernels.merge_sorted import (merge_sorted,
-                                                           merge_sorted_ref)
+    at path (d)'s shape (2 x 50M rows, keys g ASC and v DESC over the raw
+    columns g INT32 and v FLOAT with zeros of both signs), then heavy ties,
+    uneven and empty sides, sides of whole tiles, live counts below
+    capacity, out_cap equal to the live total, int32 and int64 keys, 16 keys
+    with 40 more lanes (two merge launches), lanes of 1, 2, 4 and 8 bytes;
+    float32 and float64 keys ASC and DESC with NaNs of both signs and +-0,
+    nullable int64 keys ASC and DESC, a bool key and a nullable STRING code
+    key DESC."""
+    from supersonic_tpu_torch.kernels.merge_sorted import (MergeKey,
+                                                           merge_sorted,
+                                                           merge_sorted_ref,
+                                                           tile_rows)
 
     dev = torch.device("cuda", 0)
     g = torch.Generator(device="cuda").manual_seed(13)
     (ga, va, pa), (gb, vb, pb) = runs
-    ca, cb = [(p & 0xFFFFFFFF).to(torch.int32) for p in (pa, pb)]
     n = ga.shape[0]
+    key0 = [MergeKey(0)]
+    d_keys = [MergeKey(0, True), MergeKey(1, False)]
 
     def lane(m, distinct, dtype=torch.int32, ordered=True):
         x = torch.randint(0, distinct, (m,), device=dev, generator=g)
@@ -533,86 +618,138 @@ def check_merge_sorted(torch, runs):
     def rows(x):
         return torch.full((), x, dtype=torch.int64, device=dev)
 
-    # (name, a_keys, a_pays, b_keys, b_pays, out_cap, a_rows, b_rows)
-    cases = [("main", [ga, ca], [ga, va], [gb, cb], [gb, vb], 2 * n, None,
-              None)]
+    # (name, a_lanes, b_lanes, keys, out_cap, a_rows, b_rows)
+    cases = [("main", [ga, va], [gb, vb], d_keys, 2 * n, None, None)]
     ta, tb = lane(n, 5), lane(n, 5)
-    cases.append(("5 distinct keys", [ta], [rand(n, torch.int32)], [tb],
-                  [rand(n, torch.int32)], 2 * n, None, None))
+    cases.append(("5 distinct keys", [ta, rand(n, torch.int32)],
+                  [tb, rand(n, torch.int32)], key0, 2 * n, None, None))
     del ta, tb
     u = lane(70_000_000, 10**6)
-    cases.append(("70M against 3", [u], [rand(u.shape[0], torch.float32)],
-                  [lane(3, 10**6)], [rand(3, torch.float32)],
+    cases.append(("70M against 3", [u, rand(u.shape[0], torch.float32)],
+                  [lane(3, 10**6), rand(3, torch.float32)], key0,
                   u.shape[0] + 3, None, None))
     e = lane(1_000_003, 100)
-    cases.append(("empty side", [e], [rand(e.shape[0], torch.int64)],
-                  [lane(0, 100)], [rand(0, torch.int64)], e.shape[0], None,
-                  None))
-    cases.append(("empty side first", [lane(0, 100)], [rand(0, torch.int64)],
-                  [e], [rand(e.shape[0], torch.int64)], e.shape[0], None,
+    cases.append(("empty side", [e, rand(e.shape[0], torch.int64)],
+                  [lane(0, 100), rand(0, torch.int64)], key0, e.shape[0],
+                  None, None))
+    cases.append(("empty side first", [lane(0, 100), rand(0, torch.int64)],
+                  [e, rand(e.shape[0], torch.int64)], key0, e.shape[0], None,
                   rows(e.shape[0] - 5)))
-    m = library().ss_merge_tile_rows(1) * 977
-    cases.append(("whole tiles", [lane(m, 37)], [rand(m, torch.int32)],
-                  [lane(m, 37)], [rand(m, torch.int32)], 2 * m, None, None))
+    m = tile_rows([e], key0) * 977
+    cases.append(("whole tiles", [lane(m, 37), rand(m, torch.int32)],
+                  [lane(m, 37), rand(m, torch.int32)], key0, 2 * m, None,
+                  None))
     cap = 1_000_000
     dead = [torch.cat([lane(live, 1000), lane(cap - live, 1000,
                                               ordered=False)])
             for live in (700_001, 333_333)]
-    cases.append(("live counts below capacity", [dead[0]],
-                  [rand(cap, torch.int16)], [dead[1]],
-                  [rand(cap, torch.int16)], 2 * cap, rows(700_001),
-                  rows(333_333)))
-    cases.append(("out_cap = live total", [dead[0]], [rand(cap, torch.int32)],
-                  [dead[1]], [rand(cap, torch.int32)], 700_001 + 333_333,
+    cases.append(("live counts below capacity",
+                  [dead[0], rand(cap, torch.int16)],
+                  [dead[1], rand(cap, torch.int16)], key0, 2 * cap,
                   rows(700_001), rows(333_333)))
+    cases.append(("out_cap = live total", [dead[0], rand(cap, torch.int32)],
+                  [dead[1], rand(cap, torch.int32)], key0,
+                  700_001 + 333_333, rows(700_001), rows(333_333)))
 
     def two_lanes(m):
         hi = torch.randint(0, 50, (m,), device=dev, generator=g,
                            dtype=torch.int32)
         lo = torch.randint(-2**62, 2**62, (m,), device=dev, generator=g)
         lo = torch.where(torch.rand(m, device=dev, generator=g) < 0.5,
-                         lo % 7, lo)  # ties on both lanes
-        p = torch.sort(lo, stable=True).indices
-        p = p[torch.sort(hi[p], stable=True).indices]
-        return [hi[p], lo[p]]
+                         lo % 7, lo)  # ties on both keys
+        return sorted_side(torch, [hi, lo, rand(m, torch.int32)],
+                           [MergeKey(0), MergeKey(1)])
 
-    cases.append(("int32 + int64 key lanes", two_lanes(2_000_000),
-                  [rand(2_000_000, torch.int32)], two_lanes(1_500_000),
-                  [rand(1_500_000, torch.int32)], 3_500_000, rows(1_999_000),
-                  None))
-    def many_lanes(m):  # 16 lanes of 3 values: ties down to the last
+    cases.append(("int32 + int64 keys", two_lanes(2_000_000),
+                  two_lanes(1_500_000), [MergeKey(0), MergeKey(1)],
+                  3_500_000, rows(1_999_000), None))
+    keys16 = [MergeKey(i) for i in range(16)]
+
+    def many_lanes(m):  # 16 keys of 3 values: ties down to the last
         lanes = [torch.randint(0, 3, (m,), device=dev, generator=g,
                                dtype=torch.int32 if i % 2 else torch.int64)
                  for i in range(16)]
-        p = torch.arange(m, device=dev)
-        for x in reversed(lanes):
-            p = p[torch.sort(x[p], stable=True).indices]
-        return [x[p] for x in lanes]
+        return sorted_side(torch, lanes, keys16) + [
+            rand(m, torch.int32) for _ in range(40)]
 
-    cases.append(("16 key lanes, 40 payloads", many_lanes(300_000),
-                  [rand(300_000, torch.int32) for _ in range(40)],
-                  many_lanes(200_001),
-                  [rand(200_001, torch.int32) for _ in range(40)], 500_001,
-                  rows(299_999), None))
+    cases.append(("16 keys, 40 more lanes", many_lanes(300_000),
+                  many_lanes(200_001), keys16, 500_001, rows(299_999), None))
     widths = (torch.bool, torch.int16, torch.float32, torch.float64,
               torch.int64)
-    cases.append(("1/2/4/8-byte payloads", [lane(2_000_000, 1000)],
-                  [rand(2_000_000, t) for t in widths],
-                  [lane(1_000_000, 1000)],
-                  [rand(1_000_000, t) for t in widths], 3_000_000, None,
-                  None))
+    cases.append(("1/2/4/8-byte lanes",
+                  [lane(2_000_000, 1000)] + [rand(2_000_000, t)
+                                             for t in widths],
+                  [lane(1_000_000, 1000)] + [rand(1_000_000, t)
+                                             for t in widths], key0,
+                  3_000_000, None, None))
+
+    def floats(m, dtype):
+        """Quarter steps with ties; 2% NaN, 2% -NaN and 5% -0.0, set by
+        their bits (a float NaN operand may lose its sign)."""
+        x = torch.round(torch.randn(m, device=dev, generator=g,
+                                    dtype=dtype) * 8) / 4
+        r = torch.rand(m, device=dev, generator=g)
+        ib, qnan, neg_qnan, neg_zero = (
+            (torch.int32, 0x7FC00000, -0x00400000, -2**31)
+            if dtype == torch.float32 else
+            (torch.int64, 0x7FF8000000000000, -0x0008000000000000, -2**63))
+        return torch.where(r < 0.02, qnan, torch.where(
+            r < 0.04, neg_qnan, torch.where(r < 0.09, neg_zero, x.view(
+                ib)))).view(dtype)
+
+    for dtype in (torch.float32, torch.float64):
+        for asc in (True, False):
+            fk = [MergeKey(0, asc)]
+            cases.append((f"{dtype} key {'ASC' if asc else 'DESC'}",
+                          sorted_side(torch, [floats(1_500_000, dtype),
+                                              rand(1_500_000, torch.int32)],
+                                      fk),
+                          sorted_side(torch, [floats(1_000_001, dtype),
+                                              rand(1_000_001, torch.int32)],
+                                      fk), fk, 2_500_001, None, None))
+
+    def nullable(m, values, nulls=0.1):
+        ok = torch.rand(m, device=dev, generator=g) >= nulls
+        return [values, ok, rand(m, torch.float64)]
+
+    for asc in (True, False):
+        nk = [MergeKey(0, asc, 1)]
+        cases.append((f"nullable int64 key {'ASC' if asc else 'DESC'}",
+                      sorted_side(torch, nullable(2_000_000, torch.randint(
+                          -2**40, 2**40, (2_000_000,), device=dev,
+                          generator=g) % 1000), nk),
+                      sorted_side(torch, nullable(1_200_000, torch.randint(
+                          -2**40, 2**40, (1_200_000,), device=dev,
+                          generator=g) % 1000), nk), nk, 3_200_000,
+                      rows(1_999_999), None))
+    bk = [MergeKey(0, False), MergeKey(1, True)]
+    cases.append(("bool key DESC, then int32",
+                  sorted_side(torch, [rand(1_000_000, torch.bool),
+                                      lane(1_000_000, 50, ordered=False)],
+                              bk),
+                  sorted_side(torch, [rand(900_000, torch.bool),
+                                      lane(900_000, 50, ordered=False)], bk),
+                  bk, 1_900_000, None, None))
+    sk = [MergeKey(0, False, 1)]
+    cases.append(("nullable STRING code key DESC",
+                  sorted_side(torch, nullable(1_000_000, lane(
+                      1_000_000, 4000, ordered=False), 0.2), sk),
+                  sorted_side(torch, nullable(800_000, lane(
+                      800_000, 4000, ordered=False), 0.2), sk), sk,
+                  1_800_000, None, None))
     err = 0.0
-    for name, ak, ap, bk, bp, oc, ar, br in cases:
-        got = merge_sorted(ak, ap, bk, bp, oc, ar, br)
-        want = merge_sorted_ref(ak, ap, bk, bp, oc, ar, br)
-        for a, b in zip(got[0] + got[1], want[0] + want[1]):
+    for name, al, bl, keys, oc, ar, br in cases:
+        got = merge_sorted(al, bl, keys, oc, ar, br)
+        want = merge_sorted_ref(al, bl, keys, oc, ar, br)
+        for a, b in zip(got, want):
             assert a.shape[0] == oc and torch.equal(bits(a), bits(b)), \
                 f"merge_sorted {name}"
             err = max(err, max_abs_diff(a, b))
+    names = [c[0] for c in cases]
     del cases, got, want, u, e, dead
     torch.cuda.synchronize()
     # the library call: one stable sort of the concatenation's packed key,
-    # then one index_select per payload
+    # then one index_select per column
     packed = torch.cat([pa, pb])
     cat = [torch.cat([ga, gb]), torch.cat([va, vb])]
 
@@ -621,28 +758,49 @@ def check_merge_sorted(torch, runs):
         return [p.index_select(0, idx) for p in cat]
 
     assert all(torch.equal(bits(a), bits(b)) for a, b in zip(
-        merge_sorted([ga, ca], [ga, va], [gb, cb], [gb, vb], 2 * n)[1],
-        library_call())), "merge_sorted: the packed-key sort disagrees"
-    ins = [ga, ca, va, gb, cb, vb]
-    out = merge_sorted([ga, ca], [ga, va], [gb, cb], [gb, vb], 2 * n)
-    t = timings(torch,
-                lambda: merge_sorted([ga, ca], [ga, va], [gb, cb], [gb, vb],
-                                     2 * n),
-                lambda: merge_sorted_ref([ga, ca], [ga, va], [gb, cb],
-                                         [gb, vb], 2 * n),
-                library_call, moved_bytes(ins, out[0] + out[1]))
-    # as path (d)'s last fold step calls it: no key outputs
-    last_ms = cuda_ms(torch, lambda: merge_sorted(
-        [ga, ca], [ga, va], [gb, cb], [gb, vb], 2 * n, keep_keys=False))
-    last_bound = bound_ms(moved_bytes(ins, out[1]))
+        merge_sorted([ga, va], [gb, vb], d_keys, 2 * n), library_call())), \
+        "merge_sorted: the packed-key sort disagrees"
+    ins = [ga, va, gb, vb]
+    out = merge_sorted(ins[:2], ins[2:], d_keys, 2 * n)
+    t = timings(torch, lambda: merge_sorted(ins[:2], ins[2:], d_keys, 2 * n),
+                lambda: merge_sorted_ref(ins[:2], ins[2:], d_keys, 2 * n),
+                library_call, moved_bytes(ins, out))
     del out
-    log(f"kernel merge_sorted: bit-exact on 11 cases (2 x {n} rows; "
-        f"heavy ties, 70M against 3, empty sides, whole tiles, live counts "
-        f"below capacity, out_cap = live total, int64 key lane, 16 key lanes "
-        f"with 40 payloads, 1/2/4/8-byte payloads); {t}; without key "
-        f"outputs, as (d)'s fold step: {last_ms:.6f} ms, bound "
-        f"{last_bound:.6f} ms")
+    log(f"kernel merge_sorted: bit-exact on {len(names)} cases "
+        f"({'; '.join(names)}; main: 2 x {n} rows as path (d)'s fold step "
+        f"calls it); {t}")
     return {"max_abs_err": err, **t}
+
+
+def fold_steps_e(torch, kernels, m4_t):
+    """Path (e)'s three fold steps as MergeUnionAll makes them, each on the
+    lanes (k, k's validity, d, s) of the runs: time, byte bound and
+    launches of each."""
+    from supersonic_tpu_torch.kernels.merge_sorted import (MergeKey,
+                                                           merge_sorted)
+
+    keys = [MergeKey(0, True, 1), MergeKey(2, False)]
+    runs = [[t.columns["k"].values, t.columns["k"].valid,
+             t.columns["d"].values, t.columns["s"].values] for t in m4_t]
+    acc = runs[0]
+    steps = []
+    for i, run in enumerate(runs[1:]):
+        cap = acc[0].shape[0] + run[0].shape[0]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = merge_sorted(acc, run, keys, cap)
+        torch.cuda.synchronize()
+        launched = kernels.launches["merge_sorted"]
+        a = acc
+        ms = cuda_ms(torch, lambda: merge_sorted(a, run, keys, cap))
+        bound = bound_ms(moved_bytes(acc + run, out))
+        steps.append({"step": i + 1, "rows": cap, "ms": ms,
+                      "bound_ms": bound, "launches": launched})
+        acc = out
+    log(f"(e) fold steps, merge_sorted as MergeUnionAll calls it "
+        f"(keys k INT64 nullable ASC, d DOUBLE DESC; lanes k, k valid, d, "
+        f"s): {json.dumps(steps)}")
+    return steps
 
 
 def check_merge_d(torch, out, runs):
@@ -937,22 +1095,16 @@ def main():
     n_d = check_merge_d(torch, out, mruns)
     del out
     m4 = merge4_data(torch, dev)
-    s4 = T.TupleSchema.of(("k", T.INT64, True), ("d", T.DOUBLE, False),
-                          ("s", T.STRING, False))
-    m4_t = [T.Table.from_numpy(
-        s4, {"k": (r["k"].cpu().numpy(), r["kvalid"].cpu().numpy()),
-             "d": r["d"].cpu().numpy(), "s": r["s"].cpu().numpy()},
-        dicts={"s": T.Dictionary(tuple(r["words"]))}, device=dev)
-        for r in m4]
-    out = drive("(e) 4-way MergeUnionAll", T.MergeUnionAll(
-        [("k", True), ("d", False)], [T.ScanTable(t) for t in m4_t]),
-        ("merge_sorted", "lut_gather"))
+    m4_t = merge4_tables(T, m4, dev)
+    out = drive("(e) 4-way MergeUnionAll", merge4_plan(T, m4_t),
+                ("merge_sorted", "lut_gather"))
     n_e = check_merge_e(torch, out, m4)
     del out
     out = drive("UnionAll of (e)'s runs", T.UnionAll(
         *[T.ScanTable(t) for t in m4_t]), ("lut_gather",))
     check_union(torch, out, m4)
-    del out, m4, m4_t
+    del out, m4
+    fold_steps_e(torch, kernels, m4_t)
     log(f"merges match numpy in order: (d) {n_d} rows; (e) {n_e[0]} rows, "
         f"{n_e[1]} with a NULL k, {n_e[2]} with a NaN d; the UnionAll of "
         f"(e)'s runs matches their concatenation")
@@ -977,6 +1129,8 @@ def main():
               f"{DUP_OUT} rows")
     median_ms(lambda: merge_plan(T, merge_t), "(d) MergeUnionAll",
               f"2 x {MERGE_RUN_ROWS} -> {2 * MERGE_RUN_ROWS} rows")
+    median_ms(lambda: merge4_plan(T, m4_t), "(e) 4-way MergeUnionAll",
+              f"4 x {MERGE4_RUN_ROWS} -> {4 * MERGE4_RUN_ROWS} rows")
 
     meta = {
         "compaction": ("supersonic_tpu_torch/csrc/compaction.cu",

@@ -8,16 +8,21 @@ headline plan; ``dup8`` builds chip_smoke.py's dup8 tables (12.5M fact x 1M
 dim rows, 8 dim rows per key) and profiles join (a), the NOT_UNIQUE INNER
 join into 100M rows; ``merge`` builds chip_smoke.py's two sorted 50M-row
 runs and profiles merge (d), the MergeUnionAll of bench_ops.py:281-299 into
-100M rows.  The plan runs twice to warm up, then three runs are
+100M rows; ``e`` builds chip_smoke.py's four sorted 25M-row runs and
+profiles merge (e), their 4-way MergeUnionAll by (k INT64 nullable ASC, d
+DOUBLE DESC) into 100M rows.  The plan runs twice to warm up, then five
+runs give the host-clock median (each ends in a sync), then three runs are
 profiled with torch.profiler.  Prints the card (nvidia-smi name and power
-limit), the wall time per run, the device kernel time per run (self device
-time summed over CUDA kernel rows only, since aten op rows repeat their
-kernels' time), the busy share (device / wall), the peak device memory
-above the inputs, and the table of ops and kernels by device time.
+limit), the median, the wall time per profiled run, the device kernel time
+per run (self device time summed over CUDA kernel rows only, since aten op
+rows repeat their kernels' time), the busy share (device / wall), the peak
+device memory above the inputs, and the table of ops and kernels by device
+time.
 
-    python3 scripts/profile_torch_headline.py [headline|dup8|merge]
+    python3 scripts/profile_torch_headline.py [headline|dup8|merge|e]
 """
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -31,7 +36,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402
 import supersonic_tpu_torch as T  # noqa: E402
 
-WARMUPS, RUNS = 2, 3
+WARMUPS, MEDIAN_RUNS, RUNS = 2, 5, 3
 
 
 def main():
@@ -54,9 +59,13 @@ def main():
         runs = chip_smoke.merge_tables(T, chip_smoke.merge_data(torch, dev),
                                        dev)
         torch.cuda.empty_cache()
+    elif which == "e":
+        runs = chip_smoke.merge4_tables(
+            T, chip_smoke.merge4_data(torch, dev), dev)
+        torch.cuda.empty_cache()
     else:
         sys.exit(f"profile_torch_headline: unknown plan {which!r}")
-    if which != "merge":
+    if which in ("headline", "dup8"):
         fact_t = T.Table.from_numpy(fs, fact, device=dev)
         dim_t = T.Table.from_numpy(ds, dim, device=dev)
 
@@ -65,12 +74,22 @@ def main():
             return chip_smoke.headline_plan(T, fact_t, dim_t)
         if which == "merge":
             return chip_smoke.merge_plan(T, runs)
+        if which == "e":
+            return chip_smoke.merge4_plan(T, runs)
         return chip_smoke.dup8_plan(T, fact_t, dim_t, T.JoinType.INNER, False)
 
     print(f"plan: {which}")
     for _ in range(WARMUPS):
         T.execute(plan())
     torch.cuda.synchronize()
+    times = []
+    for _ in range(MEDIAN_RUNS):
+        t0 = time.perf_counter()
+        T.execute(plan())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"host-clock median {statistics.median(times):.3f} ms over "
+          f"{MEDIAN_RUNS} runs (all: {', '.join(f'{t:.3f}' for t in times)})")
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     with profile(activities=[ProfilerActivity.CPU,

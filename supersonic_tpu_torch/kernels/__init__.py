@@ -121,6 +121,7 @@ def _bind(lib) -> None:
         "ss_compact_count": [P, L, P, P],
         "ss_compact_scatter": [P, L, P, L, I, PP, PP, IP, P],
         "ss_lut_gather_staged": [I, I, IP],
+        "ss_lut_gather_specialised": [I, IP, PP],
         "ss_lut_gather": [P, L, I, I, PP, PP, IP, P],
         "ss_segment_reduce_threads": [],
         "ss_segment_reduce_partial": [P, L, I, I, IP, PP, P, I, P],
@@ -128,9 +129,10 @@ def _bind(lib) -> None:
         "ss_spread_tile_rows": [],
         "ss_spread_bounds": [P, I, L, P, P],
         "ss_spread_expand": [P, L, P, I, ctypes.c_uint, PP, PP, IP, P],
-        "ss_merge_tile_rows": [I],
-        "ss_merge_splits": [I, PP, PP, IP, P, P, L, L, L, P, P],
-        "ss_merge_sorted": [I, I, PP, PP, PP, IP, P, P, L, P, P],
+        "ss_merge_tile_rows": [I, IP],
+        "ss_merge_splits": [I, IP, IP, PP, PP, PP, PP, P, P, L, L, L, P, P],
+        "ss_merge_sorted": [I, IP, IP, PP, PP, PP, PP, I, PP, PP, PP, IP, P,
+                            P, L, P, P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)

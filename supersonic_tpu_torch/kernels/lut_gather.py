@@ -4,14 +4,17 @@ Port of ``supersonic_tpu/kernels/lut_gather.py::lut_gather``:
 ``[lut[clip(idx, 0, K - 1)] for lut in luts]``.  The TPU kernel took only
 32-bit lanes of LUTs up to 65536 entries; this one takes lanes of 1, 2, 4
 and 8 bytes and any K below 2^31, staging the LUT in shared memory when it
-fits and reading it through L2 otherwise.
+fits and reading it through L2 otherwise.  The lane sets the joins use (one
+to three 4-byte lanes, with or without one 1-byte lane) take a kernel
+specialised for them; any other set takes a generic one (``specialised``
+says which).  The index may be a slice at any offset.
 """
 from __future__ import annotations
 
 import torch
 
-from . import (MAX_ARRAYS, check, check_cuda_inputs, int_array, launches,
-               library, ptr_array, stream_of)
+from . import (MAX_ARRAYS, addr_array, check, check_cuda_inputs, int_array,
+               launches, library, ptr_array, stream_of)
 
 
 def lut_gather_ref(luts, idx: torch.Tensor, num_entries: int):
@@ -56,6 +59,14 @@ def lut_gather(luts, idx: torch.Tensor, num_entries: int):
             stream_of(idx)), "lut_gather")
         launches["lut_gather"] += 1
     return outs
+
+
+def specialised(luts) -> bool:
+    """Whether the kernel takes a specialised lane signature for these LUTs
+    (the outputs the wrapper allocates are always aligned)."""
+    widths = [t.element_size() for t in luts]
+    return bool(library().ss_lut_gather_specialised(
+        len(widths), int_array(widths), addr_array([0] * len(widths))))
 
 
 def staged(luts, num_entries: int) -> bool:

@@ -16,7 +16,7 @@ from supersonic_tpu_torch import kernels
 from supersonic_tpu_torch.kernels.compaction import (compact_arrays_ref,
                                                      compact_kernel)
 from supersonic_tpu_torch.kernels.lut_gather import lut_gather
-from supersonic_tpu_torch.kernels.merge_sorted import merge_sorted
+from supersonic_tpu_torch.kernels.merge_sorted import MergeKey, merge_sorted
 from supersonic_tpu_torch.kernels.segment_reduce import segment_reduce_multi
 from supersonic_tpu_torch.kernels.spread import spread_kernel
 
@@ -79,17 +79,23 @@ def test_compaction_rejects_bad_inputs():
                        torch.zeros(4, dtype=torch.bool), 4)
 
 
-@pytest.mark.parametrize("K", [300, 4096])
-def test_lut_gather_matches_jax_kernel(K):
+@pytest.mark.parametrize("K,offset", [
+    pytest.param(300, 0, id="300"),
+    pytest.param(4096, 0, id="4096"),
+    pytest.param(777, 1, id="777-index-slice-at-odd-offset"),
+])
+def test_lut_gather_matches_jax_kernel(K, offset):
     rng = np.random.default_rng(K)
     n = 2 * jax_lut_gather.TILE + 77
-    idx = rng.integers(-3, K + 5, n).astype(np.int32)  # out of range both ways
+    # out of range both ways; the port takes it as a slice at `offset`
+    full = rng.integers(-3, K + 5, n + offset).astype(np.int32)
+    idx = full[offset:]
     a = rng.integers(-2**31, 2**31 - 1, K, dtype=np.int32)
     b = rng.standard_normal(K).astype(np.float32)
     ja, jb = jax_lut_gather.lut_gather(
         [jnp.asarray(a), jnp.asarray(b).view(jnp.uint32)], jnp.asarray(idx), K)
     ta, tb = lut_gather([torch.from_numpy(a), torch.from_numpy(b)],
-                        torch.from_numpy(idx), K)
+                        torch.from_numpy(full)[offset:], K)
     np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
     np.testing.assert_array_equal(tb.numpy().view(np.uint32), np.asarray(jb))
 
@@ -164,7 +170,7 @@ def test_cpu_wrappers_launch_no_kernel():
                          torch.zeros(8, dtype=torch.int32), 2)
     spread_kernel([torch.arange(8)], torch.arange(8, dtype=torch.int32), 9)
     k = torch.arange(8, dtype=torch.int32)
-    merge_sorted([k], [k], [k], [k], 16)
+    merge_sorted([k, k.double()], [k, k.double()], [MergeKey(1, False)], 16)
     assert kernels.launches == {"compaction": 0, "lut_gather": 0,
                                 "segment_reduce": 0,
                                 "segment_reduce_small": 0, "spread": 0,

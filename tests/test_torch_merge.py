@@ -1,7 +1,7 @@
 """The port's merge slice on the CPU: the merge kernel's plain version
 (which its wrapper runs for CPU tensors) against the JAX package's Pallas
 merge in interpret mode and against a numpy (keys, side, position) oracle;
-the key lanes of ``sortable_words``; MergeUnionAll and UnionAll against the
+the compare words of ``sortable_words``; MergeUnionAll and UnionAll against the
 JAX package's on the same seeded numpy inputs (its MergeUnionAll takes its
 ``lax.sort`` route on the CPU).  The CUDA kernel is held against the same
 plain version on the card by chip_smoke.py."""
@@ -15,9 +15,9 @@ import supersonic_tpu as J
 import supersonic_tpu_torch as T
 from supersonic_tpu.kernels import merge_sorted as jax_merge
 from supersonic_tpu_torch import kernels
-from supersonic_tpu_torch.kernels.merge_sorted import (merge_sorted,
-                                                       merge_sorted_ref)
-from supersonic_tpu_torch.ops.keys import descending_code, sortable_words
+from supersonic_tpu_torch.kernels.merge_sorted import (MergeKey, merge_sorted,
+                                                       sortable_words)
+from supersonic_tpu_torch.ops.keys import descending_code
 
 from torch_parity import schema
 
@@ -59,9 +59,9 @@ def test_merge_matches_jax_kernel(na, nb, kr, seed):
     (wk,), (wp,) = jax_merge.merge_sorted(
         [jnp.asarray(ka)], [jnp.asarray(pa)], [jnp.asarray(kb)],
         [jnp.asarray(pb)], na + nb)
-    (gk,), (gp,) = merge_sorted(
-        [torch.from_numpy(ka)], [torch.from_numpy(pa)],
-        [torch.from_numpy(kb)], [torch.from_numpy(pb)], na + nb)
+    gk, gp = merge_sorted(
+        [torch.from_numpy(ka), torch.from_numpy(pa)],
+        [torch.from_numpy(kb), torch.from_numpy(pb)], [MergeKey(0)], na + nb)
     np.testing.assert_array_equal(gk.numpy(), np.asarray(wk)[:na + nb])
     np.testing.assert_array_equal(gp.numpy(), np.asarray(wp)[:na + nb])
 
@@ -93,38 +93,46 @@ def test_merge_against_numpy_order(cap_a, cap_b, a_rows, b_rows, lanes,
     ap = [rng.integers(0, 200, cap_a).astype(np.uint8), rng.random(cap_a)]
     bp = [rng.integers(0, 200, cap_b).astype(np.uint8), rng.random(cap_b)]
     out_cap = round((cap_a + cap_b) * out_frac)
-    t = [[torch.from_numpy(x) for x in arrs] for arrs in (ak, ap, bk, bp)]
-    gk, gp = merge_sorted(*t, out_cap, torch.tensor(a_rows),
-                          torch.tensor(b_rows))
+    ta, tb = ([torch.from_numpy(x) for x in arrs] for arrs in (ak + ap, bk + bp))
+    keys = [MergeKey(i) for i in range(len(ak))]
+    got = merge_sorted(ta, tb, keys, out_cap, torch.tensor(a_rows),
+                       torch.tensor(b_rows))
     src = _oracle(ak, bk, a_rows, b_rows)[:out_cap]
-    for got, a, b in zip(gk + gp, ak + ap, bk + bp):
-        assert got.shape == (out_cap,)
-        np.testing.assert_array_equal(got.numpy(), np.r_[a, b][src])
-    none, pays = merge_sorted(*t, out_cap, a_rows, b_rows, keep_keys=False)
-    assert none == [] and all(torch.equal(x, y) for x, y in zip(pays, gp))
+    for g, a, b in zip(got, ak + ap, bk + bp):
+        assert g.shape == (out_cap,)
+        np.testing.assert_array_equal(g.numpy(), np.r_[a, b][src])
+    # live counts as python ints give the same rows
+    again = merge_sorted(ta, tb, keys, out_cap, a_rows, b_rows)
+    assert all(torch.equal(x, y) for x, y in zip(again, got))
 
 
 def test_merge_rejects_bad_inputs_and_launches_nothing_on_cpu():
     k = torch.arange(4, dtype=torch.int32)
     p = torch.zeros(4)
+    ok = torch.ones(4, dtype=torch.bool)
+    key = [MergeKey(0)]
     kernels.reset_launches()
-    merge_sorted([k], [p], [k], [p], 8)
+    merge_sorted([k, p], [k, p], key, 8)
     assert set(kernels.launches.values()) == {0}  # CPU: no kernel
     for bad in (
-            lambda: merge_sorted([k.float()], [p], [k.float()], [p], 8),
-            lambda: merge_sorted([k], [p], [k.long()], [p], 8),
-            lambda: merge_sorted([k], [p], [k], [p], 9),
-            lambda: merge_sorted([k], [p], [k], [p.double()], 8),
-            lambda: merge_sorted([k], [p[:3]], [k], [p], 8),
-            lambda: merge_sorted([], [p], [], [p], 8),
-            lambda: merge_sorted([k] * 17, [], [k] * 17, [], 8),
-            lambda: merge_sorted([k], [p] * 33, [k], [p] * 32, 8)):
+            lambda: merge_sorted([k.short()], [k.short()], key, 8),
+            lambda: merge_sorted([k], [k.long()], key, 8),
+            lambda: merge_sorted([k, p], [k, p], key, 9),
+            lambda: merge_sorted([k, p], [k, p.double()], key, 8),
+            lambda: merge_sorted([k, p[:3]], [k, p], key, 8),
+            lambda: merge_sorted([k], [k], [], 8),
+            lambda: merge_sorted([k], [k], [MergeKey(1)], 8),
+            lambda: merge_sorted([k, k], [k, k], [MergeKey(0, True, 1)], 8),
+            lambda: merge_sorted([k], [k], key * 17, 8),
+            lambda: merge_sorted([k, ok], [k, ok], [MergeKey(0, True, 1)] * 9,
+                                 8),
+            lambda: merge_sorted([k] + [p] * 33, [k] + [p] * 32, key, 8)):
         with pytest.raises(ValueError):
             bad()
-    # more payloads than one launch moves
-    _, pays = merge_sorted([k], [p + i for i in range(40)], [k],
-                           [p - i for i in range(40)], 8)
-    assert [x[:2].tolist() for x in pays[::13]] == [
+    # more lanes than one launch moves
+    got = merge_sorted([k] + [p + i for i in range(40)],
+                       [k] + [p - i for i in range(40)], key, 8)
+    assert [x[:2].tolist() for x in got[1::13]] == [
         [0.0, 0.0], [13.0, -13.0], [26.0, -26.0], [39.0, -39.0]]
 
 
