@@ -15,7 +15,12 @@ the sorted merge of bench_ops.py:281-299 ("merge_union 2x4M") scaled to
      main paths' shapes: compaction, LUT gather, spread and merge_sorted
      bit for bit (ragged tails, capacities below the total, out-of-range
      indices, payloads of 1, 2, 4 and 8 bytes, no source, repeated starts,
-     heavy ties, uneven and empty sides, live counts below capacity; the
+     heavy ties, uneven and empty sides, live counts below capacity;
+     compaction of nothing and of everything, at one tile and one tile
+     +-1, cut at a tile's edge and inside a tile, over odd-offset views,
+     32 mixed payloads, and more than 2^16 tiles five times in a row;
+     spread with starts on tile edges, a run of the stage's size and one
+     past it, the row add beside other widths, odd-offset views; the
      LUT gather's specialised lane signatures, an index slice at an odd
      offset and its generic route; the merge over raw int32, int64,
      float32, float64 (NaNs of both signs, +-0), bool and STRING-code keys,
@@ -23,7 +28,8 @@ the sorted merge of bench_ops.py:281-299 ("merge_union 2x4M") scaled to
      modes exactly, f32 sums within rtol 1e-4.  Each is timed beside its
      plain version, one PyTorch call computing the same function where
      there is one, and its bound: the bytes it must move over the card's
-     3.35 TB/s
+     3.35 TB/s; compaction also at each caller's shape and spread at joins
+     (a)'s and (b)'s
   4. the main paths, each from zeroed launch counters: the headline plan of
      bench.py:73-86 through ``execute``, then Filter on its own and an
      unmasked UNIQUE join over a permuted primary key (the two operators
@@ -201,24 +207,65 @@ def headline_plan(T, fact_t, dim_t):
 
 
 def check_compaction(torch, fk, v, keep):
-    from supersonic_tpu_torch.kernels.compaction import (compact_arrays_ref,
-                                                         compact_kernel)
+    """The compaction kernel bit for bit against its plain version: the
+    Filter's shape, out_cap below the kept count, every payload width, a
+    ragged length, nothing and everything kept, one tile and one tile +-1,
+    out_cap at a tile's edge and inside a tile, a mask and payloads that
+    are views at odd offsets (the element-load instance), 32 payloads of
+    mixed widths, and more than 2^16 tiles run 5 times in a row (a race in
+    the look-back would show as a run that differs); then timed at the
+    Filter's shape and at each caller's shape."""
+    from supersonic_tpu_torch.kernels.compaction import (TILE_ROWS,
+                                                         compact_arrays_ref,
+                                                         compact_kernel,
+                                                         vector_loads)
 
+    from supersonic_tpu_torch.kernels import library
+
+    assert library().ss_compact_tile_rows() == TILE_ROWS
     n = keep.shape[0]
     kept = int(keep.sum())
-    cases = [("main", [fk, v], n), ("out_cap<kept", [fk, v], kept // 2)]
-    # every payload width moves natively (1, 4 and 8 bytes)
-    m = 1_000_003  # ragged: not a multiple of the 1024-row block
     g = torch.Generator(device="cuda").manual_seed(7)
+
+    def rand(m, dtype):
+        if dtype == torch.bool:
+            return torch.rand(m, device="cuda", generator=g) < 0.5
+        if dtype.is_floating_point:
+            return torch.randn(m, device="cuda", generator=g, dtype=dtype)
+        lo, hi = ((-2**62, 2**62) if dtype == torch.int64 else
+                  (torch.iinfo(dtype).min, torch.iinfo(dtype).max))
+        return torch.randint(lo, hi, (m,), device="cuda", generator=g,
+                             dtype=dtype)
+
+    # (name, payloads, mask, out_cap, whether 16-byte loads apply)
+    cases = [("main", [fk, v], keep, n, True),
+             ("out_cap<kept", [fk, v], keep, kept // 2, True)]
+    m = 1_000_003  # ragged: not a multiple of the tile
     mask = torch.rand(m, device="cuda", generator=g) < 0.37
-    wide = [torch.randn(m, device="cuda", dtype=torch.float64, generator=g),
-            torch.randint(-2**62, 2**62, (m,), device="cuda", generator=g),
-            torch.rand(m, device="cuda", generator=g) < 0.5,
-            torch.randn(m, device="cuda", generator=g)]
-    cases.append(("widths", wide, m))
+    widths = (torch.float64, torch.int64, torch.bool, torch.float32,
+              torch.int16)
+    wide = [rand(m, t) for t in widths]  # every width moves natively
+    cases += [("1/2/4/8-byte payloads, ragged", wide, mask, m, True),
+              ("nothing kept", wide, torch.zeros_like(mask), m, True),
+              ("everything kept", wide, torch.ones_like(mask), m, True)]
+    for rows in (TILE_ROWS - 1, TILE_ROWS, TILE_ROWS + 1):
+        cases.append((f"n = {rows}", [x[:rows] for x in wide], mask[:rows],
+                      rows, True))
+    # the kept rows up to the end of tile 100, and 777 rows into tile 101
+    edge = int(mask[:101 * TILE_ROWS].sum())
+    cases += [("out_cap at a tile edge", wide, mask, edge, True),
+              ("out_cap inside a tile", wide, mask, edge + 777, True)]
+    odd = [rand(m + 3, t)[3:] for t in widths]
+    odd_mask = (torch.rand(m + 1, device="cuda", generator=g) < 0.5)[1:]
+    cases += [("odd-offset mask and payloads", odd, odd_mask, m, False),
+              ("odd-offset mask", wide, odd_mask, m, False),
+              ("one odd-offset payload", wide[:2] + odd[2:3], mask, m,
+               False)]
+    mixed = [rand(m, widths[i % len(widths)]) for i in range(32)]
+    cases.append(("32 payloads of mixed widths", mixed, mask, m // 2, True))
     err = 0.0
-    for name, pays, cap in cases:
-        msk = keep if name != "widths" else mask
+    for name, pays, msk, cap, vec in cases:
+        assert vector_loads([msk] + pays) == vec, f"compaction {name}: route"
         got, cnt = compact_kernel(pays, msk, cap)
         want, wcnt = compact_arrays_ref(pays, msk, cap)
         c = int(cnt)
@@ -226,13 +273,30 @@ def check_compaction(torch, fk, v, keep):
         for a, b in zip(got, want):
             assert torch.equal(bits(a[:c]), bits(b[:c])), f"compaction {name}"
             err = max(err, max_abs_diff(a[:c], b[:c]))
+    names = [c[0] for c in cases]
+    del cases, wide, odd, mixed, got, want
+    # more than 2^16 tiles, five runs in a row, each bit for bit
+    big = (2**16 + 5) * TILE_ROWS + 1234
+    bmask = torch.rand(big, device="cuda", generator=g) < 0.5
+    bpays = [torch.arange(big, dtype=torch.int32, device="cuda"),
+             rand(big, torch.bool)]
+    want, wcnt = compact_arrays_ref(bpays, bmask, big)
+    for run in range(5):
+        got, cnt = compact_kernel(bpays, bmask, big)
+        c = int(cnt)
+        assert c == int(wcnt), ("more than 2^16 tiles", run, c)
+        assert all(torch.equal(a[:c], b[:c]) for a, b in zip(got, want)), \
+            f"compaction: more than 2^16 tiles, run {run + 1} differs"
+        del got
+    names.append(f"{-(-big // TILE_ROWS)} tiles, 5 runs")
+    del bmask, bpays, want
     torch.cuda.synchronize()
     t = timings(torch, lambda: compact_kernel([fk, v], keep, n),
                 lambda: compact_arrays_ref([fk, v], keep, n),
                 lambda: [torch.masked_select(p, keep) for p in (fk, v)],
                 n * (1 + 4 + 4) + kept * (4 + 4))
-    log(f"kernel compaction: bit-exact on {len(cases)} cases "
-        f"(n={n}, kept={kept}); {t}")
+    log(f"kernel compaction: bit-exact on {len(names)} cases "
+        f"({'; '.join(names)}; main n={n}, kept={kept}); {t}")
     # each call shape of the driven paths: rows, 4-byte lanes, kept share
     g = torch.Generator(device="cuda").manual_seed(8)
     shapes = [("Filter", n, 2, None), ("unmasked UNIQUE join", n, 3, None),
@@ -388,7 +452,13 @@ def check_segment_reduce_small(torch, ids, v):
 
 def check_spread(torch, v):
     """The spread kernel at the dup8 join's shape (12.5M sources of v and
-    d, 8 rows each, into 100M rows), then bit for bit on the edge cases."""
+    d, 8 rows each, into 100M rows), then bit for bit on the edge cases:
+    payloads of every width with a dead tail, out_cap below the total, no
+    source, repeated starts, starts on tile edges, a tile's run of exactly
+    the stage and one past it (the searched route), the row add beside 1-,
+    2- and 8-byte lanes, and views at odd offsets; then timed at (a)'s and
+    (b)'s shapes."""
+    from supersonic_tpu_torch.kernels import library
     from supersonic_tpu_torch.kernels.spread import (I32_MAX, spread_kernel,
                                                      spread_ref)
 
@@ -435,6 +505,36 @@ def check_spread(torch, v):
     rep[0] = 0
     cases.append(("repeated starts", [rand(rep.shape[0], torch.int64)], rep,
                   100_077, ()))
+    tile = library().ss_spread_tile_rows()
+    # sources starting exactly on tile edges and one row either side
+    edge = torch.tensor([tile, 1, tile - 2, 1, tile], device=dev).repeat(
+        2000)
+    be = (torch.cumsum(edge, 0) - edge).to(torch.int32)
+    assert bool((be % tile == 0).any()) and bool((be % tile == 1).any())
+    cases.append(("starts on tile edges", [rand(be.shape[0], t) for t in (
+        torch.int32, torch.float64)], be, int(edge.sum()), (0,)))
+    # tile 1's run: one source before it, `run - 2` sharing one start, one
+    # at its last row; the stage holds exactly tile + 2 sources
+    for run in (tile + 2, tile + 3):
+        br = torch.cat([torch.tensor([0, tile], device=dev),
+                        torch.full((run - 2,), tile + 900, device=dev),
+                        torch.tensor([2 * tile - 1], device=dev),
+                        torch.arange(2 * tile, 6 * tile, 3, device=dev)]
+                       ).to(torch.int32)
+        cases.append((f"a run of {run} sources in one tile",
+                      [rand(br.shape[0], torch.int32)], br, 6 * tile + 5,
+                      (0,)))
+    mixed = [rand(bw.shape[0], t) for t in (torch.bool, torch.int16,
+                                            torch.int32, torch.float64)]
+    cases.append(("row add on a 4-byte lane beside 1-, 2-, 8-byte lanes",
+                  mixed, bw, tw, (2,)))
+    # views at odd offsets: base one int32 in, payloads 1 or 3 elements in
+    bo = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev), bw])[1:]
+    odd = [rand(bw.shape[0] + k, t)[k:] for k, t in (
+        (3, torch.bool), (1, torch.int16), (1, torch.int32),
+        (1, torch.float64))]
+    assert all(p.data_ptr() % 16 for p in odd + [bo])
+    cases.append(("odd-offset views", odd, bo, tw + 3, (2,)))
     err = 0.0
     for name, pays, base, cap, add_row in cases:
         got = spread_kernel(pays, base, cap, add_row)
@@ -458,10 +558,41 @@ def check_spread(torch, v):
                          for p in (v, d)],
                 n * (4 + 4 + 4) + DUP_OUT * (4 + 4))
     bare = cuda_ms(torch, lambda: spread_kernel([v, d], base8, DUP_OUT))
-    log(f"kernel spread: bit-exact on {len(cases)} cases ({n} sources into "
-        f"{DUP_OUT} rows; {', '.join(c[0] for c in cases)}; row index added "
-        f"to d in main and max_eff 1); {t}; without the row add "
+    names = [c[0] for c in cases]
+    del cases, got, want
+    log(f"kernel spread: bit-exact on {len(names)} cases ({n} sources into "
+        f"{DUP_OUT} rows; {'; '.join(names)}; row index added to d in main "
+        f"and wherever a case adds it); {t}; without the row add "
         f"{bare:.6f} ms")
+    # each call shape of the joins: (a) as above; (b) LEFT_OUTER under
+    # Filter(v > 0.5): about half the sources live, half of those hit their
+    # key's 8 rows and half emit one NULL row, then dead sources; three
+    # lanes (v, d + row, count) into the plan's 100M rows, rows past the
+    # total holding the last live source.  Bounds count the live sources.
+    live = v > 0.5
+    eff = torch.where(torch.rand(n, device=dev, generator=g) < 0.5, 8, 1)
+    eff = eff[live]
+    nb = eff.shape[0]
+    bb = torch.cat([(torch.cumsum(eff, 0) - eff).to(torch.int32),
+                    torch.full((n - nb,), I32_MAX, dtype=torch.int32,
+                               device=dev)])
+    cnt = torch.cat([eff.to(torch.int32),
+                     torch.zeros(n - nb, dtype=torch.int32, device=dev)])
+    pays_b = [v, d, cnt]
+    per_call = [{"call": "(a) v, d + row", "sources": n, "live": n,
+                 "rows": DUP_OUT, "lanes": 2, "ms": t["ms"],
+                 "bound_ms": t["bound_ms"]}]
+    ms = cuda_ms(torch, lambda: spread_kernel(pays_b, bb, DUP_OUT, (1,)))
+    per_call.append({"call": "(b) v, d + row, count", "sources": n,
+                     "live": nb, "rows": DUP_OUT, "total": int(eff.sum()),
+                     "lanes": 3, "ms": ms,
+                     "bound_ms": bound_ms(nb * (4 + 12) + DUP_OUT * 12)})
+    for c in per_call:
+        c["over_bound_ms"] = c["ms"] - c["bound_ms"]
+    assert all(torch.equal(bits(a), bits(b)) for a, b in zip(
+        spread_kernel(pays_b, bb, DUP_OUT, (1,)),
+        spread_ref(pays_b, bb, DUP_OUT, (1,)))), "spread: (b)'s shape"
+    log(f"spread per call shape: {json.dumps(per_call)}")
     return {"max_abs_err": err, **t}
 
 

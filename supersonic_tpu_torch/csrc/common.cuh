@@ -35,17 +35,6 @@ static inline int ss_fill_arrays(SsArrays* a, int count, void* const* src,
   return 0;
 }
 
-// Copies element `from` of `src` to element `to` of `dst`, `width` bytes.
-static __device__ __forceinline__ void ss_move(const void* src, long long from,
-                                        void* dst, long long to, int width) {
-  switch (width) {
-    case 1: static_cast<uint8_t*>(dst)[to] = static_cast<const uint8_t*>(src)[from]; break;
-    case 2: static_cast<uint16_t*>(dst)[to] = static_cast<const uint16_t*>(src)[from]; break;
-    case 4: static_cast<uint32_t*>(dst)[to] = static_cast<const uint32_t*>(src)[from]; break;
-    default: static_cast<uint64_t*>(dst)[to] = static_cast<const uint64_t*>(src)[from]; break;
-  }
-}
-
 static inline int ss_multiprocessors() {
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 132;

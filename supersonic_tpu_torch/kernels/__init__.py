@@ -13,10 +13,10 @@ Each kernel module (``compaction``, ``lut_gather``, ``segment_reduce``,
 versions.  A wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches its kernel or raises.  A wrapper adds one to
 ``launches[name]`` right after each kernel launch it makes, and nowhere
-else: compaction launches a count and a scatter kernel, segment_reduce (and
-segment_reduce_small, one request of the same kernel) a partial and a final
-pass, spread a bounds and an expand kernel, merge_sorted a splits and a
-merge kernel, lut_gather one kernel.
+else: compaction launches one kernel (after zeroing its scratch with a
+memset), segment_reduce (and segment_reduce_small, one request of the same
+kernel) a partial and a final pass, spread a bounds and an expand kernel,
+merge_sorted a splits and a merge kernel, lut_gather one kernel.
 """
 from __future__ import annotations
 
@@ -117,9 +117,8 @@ def _bind(lib) -> None:
     PP = ctypes.POINTER(ctypes.c_void_p)
     IP = ctypes.POINTER(ctypes.c_int)
     sigs = {
-        "ss_compact_block_rows": [],
-        "ss_compact_count": [P, L, P, P],
-        "ss_compact_scatter": [P, L, P, L, I, PP, PP, IP, P],
+        "ss_compact_tile_rows": [],
+        "ss_compact": [P, L, L, I, I, PP, PP, IP, P, P, L, P],
         "ss_lut_gather_staged": [I, I, IP],
         "ss_lut_gather_specialised": [I, IP, PP],
         "ss_lut_gather": [P, L, I, I, PP, PP, IP, P],

@@ -3,7 +3,9 @@
 Port of ``supersonic_tpu/kernels/compaction.py::compact_kernel``.  Rows
 where ``mask`` is set move, in order, into a dense prefix of ``out_cap``
 rows of each payload; the count is ``min(kept, out_cap)``.  Payloads of 1,
-2, 4 or 8 bytes move natively: no word split.
+2, 4 or 8 bytes move natively: no word split.  The kernel makes one pass
+over the mask in one launch (a single-pass scan of tiles of ``TILE_ROWS``
+rows with decoupled look-back), after zeroing the tiles' status words.
 """
 from __future__ import annotations
 
@@ -11,6 +13,8 @@ import torch
 
 from . import (MAX_ARRAYS, check, check_cuda_inputs, int_array, launches,
                library, ptr_array, stream_of)
+
+TILE_ROWS = 4096  # rows a block of the kernel takes (kTile of the source)
 
 
 def compact_arrays_ref(payloads, mask: torch.Tensor, out_cap: int):
@@ -24,6 +28,25 @@ def compact_arrays_ref(payloads, mask: torch.Tensor, out_cap: int):
         out[:count] = p[mask][:count]
         outs.append(out)
     return outs, torch.tensor(count, dtype=torch.int64, device=mask.device)
+
+
+def scratch_words(n: int) -> int:
+    """int64 words of the kernel's scratch for ``n`` rows: one status word a
+    tile, then the tile counter."""
+    return -(-n // TILE_ROWS) + 1
+
+
+def vector_loads(tensors) -> bool:
+    """Whether the kernel reads these inputs (the mask and the payloads) with
+    16-byte loads: every one starts on a 16-byte boundary.  A view at another
+    offset makes the whole call take the instance with element loads."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def kernel_launches(n: int, out_cap: int) -> int:
+    """Kernel launches of one call on CUDA tensors: none when there is no
+    row to read or none to keep, else one."""
+    return int(n > 0 and out_cap > 0)
 
 
 def compact_kernel(payloads, mask: torch.Tensor, out_cap: int):
@@ -49,26 +72,22 @@ def compact_kernel(payloads, mask: torch.Tensor, out_cap: int):
     if mask.device.type != "cuda":
         raise ValueError(f"compact_kernel: unsupported device {mask.device}")
     check_cuda_inputs("compact_kernel", mask.device, [mask] + list(payloads))
-    lib = library()
     dev = mask.device
     outs = [torch.empty(out_cap, dtype=p.dtype, device=dev) for p in payloads]
-    if n == 0:
+    if not kernel_launches(n, out_cap):
         return outs, torch.zeros((), dtype=torch.int64, device=dev)
-    nblocks = -(-n // lib.ss_compact_block_rows())
-    counts = torch.empty(nblocks, dtype=torch.int32, device=dev)
+    lib = library()
+    count = torch.empty((), dtype=torch.int64, device=dev)
+    words = scratch_words(n)
+    scratch = torch.empty(words, dtype=torch.int64, device=dev)
     # the C side launches on the current device
     with torch.cuda.device(dev):
-        stream = stream_of(mask)
-        check(lib.ss_compact_count(mask.data_ptr(), n, counts.data_ptr(),
-                                   stream), "compaction count")
+        check(lib.ss_compact(
+            mask.data_ptr(), n, out_cap,
+            int(vector_loads([mask] + list(payloads))), len(payloads),
+            ptr_array(payloads), ptr_array(outs),
+            int_array([p.element_size() for p in payloads]),
+            count.data_ptr(), scratch.data_ptr(), words, stream_of(mask)),
+            "compaction")
         launches["compaction"] += 1
-        incl = torch.cumsum(counts, 0, dtype=torch.int64)
-        offsets = incl - counts
-        if payloads:
-            check(lib.ss_compact_scatter(
-                mask.data_ptr(), n, offsets.data_ptr(), out_cap, len(payloads),
-                ptr_array(payloads), ptr_array(outs),
-                int_array([p.element_size() for p in payloads]), stream),
-                "compaction scatter")
-            launches["compaction"] += 1
-    return outs, torch.clamp(incl[-1], max=out_cap)
+    return outs, count

@@ -13,8 +13,12 @@ from supersonic_tpu.kernels import compaction as jax_compaction
 from supersonic_tpu.kernels import lut_gather as jax_lut_gather
 from supersonic_tpu.kernels import segment_reduce as jax_segment_reduce
 from supersonic_tpu_torch import kernels
-from supersonic_tpu_torch.kernels.compaction import (compact_arrays_ref,
-                                                     compact_kernel)
+from supersonic_tpu_torch.kernels.compaction import (TILE_ROWS,
+                                                     compact_arrays_ref,
+                                                     compact_kernel,
+                                                     kernel_launches,
+                                                     scratch_words,
+                                                     vector_loads)
 from supersonic_tpu_torch.kernels.lut_gather import lut_gather
 from supersonic_tpu_torch.kernels.merge_sorted import MergeKey, merge_sorted
 from supersonic_tpu_torch.kernels.segment_reduce import segment_reduce_multi
@@ -67,6 +71,59 @@ def test_compaction_moves_every_width_bit_exactly():
         assert o.dtype == p.dtype
         np.testing.assert_array_equal(o[:int(cnt)].numpy().view(np.uint8),
                                       want.view(np.uint8))
+
+
+@pytest.mark.parametrize("n,out_cap,words,launched", [
+    (0, 5, 1, 0),                       # no row: no launch
+    (1, 0, 2, 0),                       # nothing can be kept: no launch
+    (TILE_ROWS - 1, 7, 2, 1),
+    (TILE_ROWS, 7, 2, 1),
+    (TILE_ROWS + 1, 7, 3, 1),           # a ragged second tile
+    (2**16 * TILE_ROWS + 5, 1, 2**16 + 2, 1),
+])
+def test_compaction_scratch_and_launches(n, out_cap, words, launched):
+    """One status word a tile and the tile counter; one launch a call."""
+    assert scratch_words(n) == words
+    assert kernel_launches(n, out_cap) == launched
+
+
+def test_compaction_vector_route_follows_alignment():
+    """16-byte loads only when the mask and every payload start on a
+    16-byte boundary; a view at another offset takes element loads."""
+    mask = torch.zeros(256, dtype=torch.bool)
+    pay = torch.zeros(256, dtype=torch.int32)
+    wide = torch.zeros(256, dtype=torch.float64)
+    assert vector_loads([mask, pay, wide])
+    assert vector_loads([mask[16:], pay[4:], wide[2:]])
+    assert not vector_loads([mask[1:], pay[:255], wide[:255]])
+    assert not vector_loads([mask[:255], pay[1:], wide[:255]])
+    assert not vector_loads([mask[:255], pay[:255], wide[1:]])
+
+
+@pytest.mark.parametrize("n,offset,out_cap", [
+    (0, 0, 4),
+    (777, 1, 0),
+    (TILE_ROWS + 1, 3, TILE_ROWS),
+    (2 * TILE_ROWS - 1, 5, 100),
+])
+def test_compaction_views_and_edges_on_cpu(n, offset, out_cap):
+    """Ragged lengths, no row, no room, and a mask and payloads that are
+    views at odd offsets, against numpy; the CPU launches no kernel."""
+    rng = np.random.default_rng(n + offset)
+    m = rng.random(n + offset) < 0.5
+    pays = [rng.integers(-2**62, 2**62, n + offset),
+            rng.random(n + offset).astype(np.float32),
+            rng.integers(0, 9, n + offset).astype(np.int16)]
+    kernels.reset_launches()
+    got, cnt = compact_kernel([torch.from_numpy(p)[offset:] for p in pays],
+                              torch.from_numpy(m)[offset:], out_cap)
+    keep = m[offset:]
+    c = min(int(keep.sum()), out_cap)
+    assert int(cnt) == c
+    for p, g in zip(pays, got):
+        assert g.shape[0] == out_cap
+        np.testing.assert_array_equal(g[:c].numpy(), p[offset:][keep][:c])
+    assert kernels.launches["compaction"] == 0
 
 
 def test_compaction_rejects_bad_inputs():

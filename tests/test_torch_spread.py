@@ -102,6 +102,40 @@ def test_spread_edges():
                       add_row=(0,))
 
 
+@pytest.mark.parametrize("n_src,out_cap,offset", [
+    (0, 5, 0),        # no source
+    (5, 0, 0),        # no row to write
+    (3001, 2049, 1),  # ragged: one output tile and one row
+    (1500, 4097, 3),  # rows past the total hold the last source
+])
+def test_spread_views_and_edges_on_cpu(n_src, out_cap, offset):
+    """Ragged lengths, no source, no row, and base and payloads that are
+    views at odd offsets, against numpy; the CPU launches no kernel."""
+    rng = np.random.default_rng(n_src + out_cap)
+    eff = rng.integers(1, 4, n_src)
+    base = np.concatenate([np.zeros(offset, np.int32),
+                           (np.cumsum(eff) - eff).astype(np.int32)])
+    pays = [rng.integers(-2**31, 2**31 - 1, n_src + offset, dtype=np.int32),
+            rng.standard_normal(n_src + offset),
+            rng.random(n_src + offset) < 0.5]
+    kernels.reset_launches()
+    got = spread_kernel([torch.from_numpy(p)[offset:] for p in pays],
+                        torch.from_numpy(base)[offset:], out_cap, add_row=(0,))
+    rows = np.arange(out_cap)
+    src = np.clip(np.searchsorted(base[offset:], rows, side="right") - 1, 0,
+                  None)
+    for i, (p, g) in enumerate(zip(pays, got)):
+        assert g.shape[0] == out_cap
+        if n_src == 0:
+            assert not g.any()
+            continue
+        want = p[offset:][src]
+        if i == 0:
+            want = (want.astype(np.int64) + rows).astype(np.int32)
+        np.testing.assert_array_equal(g.numpy(), want)
+    assert kernels.launches["spread"] == 0
+
+
 def test_spread_adds_the_row_index_wrapping_like_int32():
     """The join's build position j + d comes out of the expansion."""
     d = torch.tensor([5, I32_MAX - 2, -7], dtype=torch.int32)
