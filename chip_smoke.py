@@ -24,19 +24,27 @@ the sorted merge of bench_ops.py:281-299 ("merge_union 2x4M") scaled to
      LUT gather's specialised lane signatures, an index slice at an odd
      offset and its generic route; the merge over raw int32, int64,
      float32, float64 (NaNs of both signs, +-0), bool and STRING-code keys,
-     ASC and DESC, with and without NULLs), the integer segment-reduce
-     modes exactly, f32 sums within rtol 1e-4.  Each is timed beside its
+     ASC and DESC, with and without NULLs); the segment reduce keyed by
+     raw key lanes (the headline group-by's call, five runs with
+     bit-identical f32 sums; every mode at K = 300 over an INT64 + INT32
+     key with kmin != 0, kept rows outside the domain and NaNs of both
+     signs and +-0; K = 2048 with 16 requests; odd-offset views) and in
+     its ids form, every output bit for bit but f32 sums (rtol 1e-4), NaN
+     slots by isnan.  Each is timed beside its
      plain version, one PyTorch call computing the same function where
      there is one, and its bound: the bytes it must move over the card's
      3.35 TB/s; compaction also at each caller's shape and spread at joins
      (a)'s and (b)'s
   4. the main paths, each from zeroed launch counters: the headline plan of
-     bench.py:73-86 through ``execute``, then Filter on its own and an
-     unmasked UNIQUE join over a permuted primary key (the two operators
-     that compact); then three joins: (a) the dup8 INNER join, 100M rows;
+     bench.py:73-86 through ``execute`` (one segment-reduce launch), then
+     Filter on its own and an unmasked UNIQUE join over a permuted primary
+     key (the two operators that compact); then four joins: (a) the dup8
+     INNER join, 100M rows;
      (b) LEFT_OUTER NOT_UNIQUE under Filter(v > 0.5) with half the keys
      missing; (c) LEFT_OUTER UNIQUE of the 100M-row fact against half its
-     dim; then two sorted merges: (d) MergeUnionAll of two 50M-row runs
+     dim; (f) the same join through the fat-LUT probe against a dim whose
+     keys each sit on two rows (the last one wins), five runs alike; then
+     two sorted merges: (d) MergeUnionAll of two 50M-row runs
      sorted by (g ASC, v DESC), 100M rows; (e) a 4-way MergeUnionAll of
      25M-row runs by (k INT64 nullable ASC, d DOUBLE DESC) with NaNs of
      both signs and +-0, carrying a STRING column whose runs have four
@@ -380,42 +388,196 @@ def check_lut_gather(torch, fk, dim_g):
     return {"max_abs_err": err, **t}
 
 
-def check_segment_reduce(torch, ids, v):
-    from supersonic_tpu_torch.kernels.segment_reduce import (
-        segment_reduce_multi, segment_reduce_multi_ref)
+def seg_compare(torch, name, got, want, reqs, rtol=SUM_RTOL):
+    """Kernel and plain outputs of segment-reduce requests ((values, mode)
+    or (values, valid, mode)): f32 sums within ``rtol`` (another order of
+    adds), everything else bit for bit; NaN slots by isnan.  Returns the
+    largest |difference| over the slots that hold no NaN."""
+    err = 0.0
+    for r, a, b in zip(reqs, got, want):
+        mode, values = r[-1], r[0]
+        assert a.dtype == b.dtype and a.shape == b.shape, (name, mode)
+        if a.dtype == torch.float32:
+            na, nb = a.isnan(), b.isnan()
+            assert torch.equal(na, nb), f"{name} {mode}: NaN slots differ"
+            a, b = a[~na], b[~nb]
+        if mode == "sum" and values is not None and \
+                values.dtype == torch.float32:
+            torch.testing.assert_close(a, b, rtol=rtol, atol=0,
+                                       msg=f"{name} f32 sum")
+        else:
+            assert torch.equal(bits(a), bits(b)), f"{name} {mode}"
+        err = max(err, max_abs_diff(a, b))
+    return err
 
-    n = ids.shape[0]
+
+def signed_zeros_and_nans(torch, x, g, nans=16):
+    """x (f32) with its zeros' signs set at random and ``nans`` NaNs of each
+    sign at random rows, all by their bits (a float NaN operand may lose its
+    sign on the card)."""
+    m = x.shape[0]
+    xi = x.view(torch.int32)
+    sign = (torch.rand(m, device=x.device, generator=g) < 0.5).to(
+        torch.int32) << 31  # the bits of -0.0 or +0.0
+    xi = torch.where((xi & 0x7FFFFFFF) == 0, sign, xi)
+    at = torch.randint(0, m, (2 * nans,), device=x.device, generator=g)
+    xi[at[:nans]] = 0x7FC00000          # +NaN
+    xi[at[nans:]] = -0x00400000         # -NaN (0xFFC00000)
+    return xi.view(torch.float32)
+
+
+def check_segment_reduce(torch, g_lane, v, keep):
+    """The segment-reduce kernel against its plain version: the keyed form
+    at the headline group-by's shape (raw g, keep, v: count and f32 sum, 5
+    runs bit-identical); every mode at K = 300 over an INT64 + INT32 key
+    with kmin != 0, kept rows out of the domain, a device row count, NaNs
+    of both signs and +-0; K = 2048 with 16 requests; odd-offset views;
+    the ids form at K = 64 and 300.  Then timed: the keyed form at the
+    headline's shape (the main path's call) and the ids form at the same
+    shape."""
+    from supersonic_tpu_torch.kernels import library
+    from supersonic_tpu_torch.kernels.segment_reduce import (
+        SMEM_BYTES, THREADS, per_thread_accumulators, segment_reduce_keyed,
+        segment_reduce_keyed_ref, segment_reduce_multi,
+        segment_reduce_multi_ref, vector_loads)
+
+    lib = library()
+    assert lib.ss_segment_reduce_threads() == THREADS
+    assert lib.ss_segment_reduce_smem_bytes() == SMEM_BYTES
+    dev = v.device
+    n = v.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    names, err = [], 0.0
+
+    def keyed(name, keys, reqs, K, keep=None, num_rows=None, vec=True,
+              per_thread=None, runs=1):
+        nonlocal err
+        inputs = [k for k, _, _ in keys] + ([] if keep is None else [keep])
+        inputs += [t for r in reqs for t in r[:2] if t is not None]
+        assert vector_loads(inputs) == vec, f"segment_reduce {name}: loads"
+        if per_thread is not None:
+            assert per_thread_accumulators(K, reqs) == per_thread, \
+                f"segment_reduce {name}: instance"
+        want, wbad = segment_reduce_keyed_ref(keys, reqs, K, keep, num_rows)
+        first = None
+        for run in range(runs):
+            got, bad = segment_reduce_keyed(keys, reqs, K, keep, num_rows)
+            assert int(bad) == int(wbad), (name, int(bad), int(wbad))
+            err = max(err, seg_compare(torch, f"segment_reduce {name}", got,
+                                       want, reqs))
+            if first is None:
+                first = got
+            else:  # every output, f32 sums included, the same bits
+                assert all(torch.equal(bits(a), bits(b))
+                           for a, b in zip(got, first)), \
+                    f"segment_reduce {name}: run {run + 1} differs"
+        names.append(name)
+        return int(wbad)
+
+    # the headline group-by, as the main path calls it, five times
+    head_keys = [(g_lane, 0, GROUPS)]
+    head_reqs = [(None, None, "count"), (v, None, "sum")]
+    nr = torch.tensor(n, dtype=torch.int64, device=dev)
+    keyed("headline keyed, 5 runs", head_keys, head_reqs, GROUPS, keep, nr,
+          per_thread=True, runs=5)
+    ref64 = torch.zeros(GROUPS, dtype=torch.float64, device=dev).index_add_(
+        0, g_lane[keep].long(), v[keep].double())
+    got, _ = segment_reduce_keyed(head_keys, head_reqs, GROUPS, keep, nr)
+    torch.testing.assert_close(got[1].double(), ref64, rtol=SUM_RTOL, atol=0)
+
+    # every mode at K = 300 = 20 x 15: an INT64 key past int32 and an INT32
+    # key below zero, 1% of the kept rows outside the domain, a row count
+    # below the lanes' length, 10% NULL values
+    m = 20_000_003
+
+    def r():
+        return torch.rand(m, device=dev, generator=gen)
+
+    k1min, k2min = 5_000_000_000, -1000
+    k1 = k1min + torch.randint(0, 20, (m,), device=dev, generator=gen)
+    k2 = (k2min + torch.randint(0, 15, (m,), device=dev,
+                                generator=gen)).to(torch.int32)
+    k1 = torch.where(r() < 0.005, k1min - 1, k1)
+    k2 = torch.where(r() < 0.005, k2min + 15, k2).to(torch.int32)
+    kp = r() < 0.7
+    valid = r() < 0.9
+    base = torch.round(torch.randn(m, device=dev, generator=gen) * 2) / 2
+    # slots of even k2 hold values <= 0 and odd ones >= 0, so +-0 decides
+    # many a max and a min
+    vn = torch.where(k2 % 2 == 0, -base.abs(), base.abs())
+    vn = signed_zeros_and_nans(torch, vn, gen)
+    vf = torch.rand(m, device=dev, generator=gen)
+    iv = torch.randint(-500, 500, (m,), device=dev, generator=gen,
+                       dtype=torch.int32)
+    keys300 = [(k1, k1min, 20), (k2, k2min, 15)]
+    every = [(None, None, "count"), (None, valid, "count"),
+             ((iv > 0).to(torch.int32), None, "count"),
+             (vf, valid, "sum"), (vn, None, "sum"), (iv, None, "sum"),
+             (iv, valid, "min"), (iv, valid, "max"), (vn, valid, "min"),
+             (vn, None, "max"), (None, None, "firstpos"),
+             (None, valid, "lastpos")]
+    mr = torch.tensor(m - 1234, dtype=torch.int64, device=dev)
+    bad300 = keyed("every mode, K = 300, INT64 + INT32 keys, 5 runs",
+                   keys300, every, 300, kp, mr, per_thread=False, runs=5)
+    assert bad300 > 0, "no kept row out of the domain"
+    # K = 2048 (32 x 64) with 16 requests: the per-warp instance in groups
+    ka = torch.randint(0, 32, (m,), device=dev, generator=gen,
+                       dtype=torch.int32)
+    kb = torch.randint(-3, 67, (m,), device=dev, generator=gen)
+    sixteen = (every + [(vf, None, "min"), (iv, None, "sum"),
+                        (vn, valid, "max"), (vf, None, "sum")])
+    keyed("K = 2048, 16 requests", [(ka, 0, 32), (kb, 0, 64)], sixteen, 2048,
+          None, None, per_thread=False)
+    # odd-offset views: the element-load instance of both layouts
+    o = 3
+    keyed("odd-offset views, per-thread", [(k2[o:], k2min, 15)],
+          [(None, None, "count"), (vn[o:], valid[o:], "sum"),
+           (vn[o:], None, "min")], 15, kp[o:], None, vec=False,
+          per_thread=True)
+    keyed("odd-offset views, per-warp", [(k1[o:], k1min, 20),
+                                         (k2[o:], k2min, 15)],
+          [(iv[o:], valid[o:], "max"), (vf[o:], None, "sum"),
+           (None, None, "lastpos")], 300, None, m - 99, vec=False,
+          per_thread=False)
+    del k1, k2, kp, valid, base, vn, vf, iv, ka, kb, every, sixteen
+
+    # the ids form (segment_reduce_multi), K = 64 and 300, every mode
+    ids = torch.where(keep, g_lane, -1).to(torch.int32)
     live = (ids >= 0).to(torch.int32)
-    pos = torch.arange(n, dtype=torch.int32, device="cuda")
+    pos = torch.arange(n, dtype=torch.int32, device=dev)
     iv = (v * 1000).to(torch.int32) - 500
     headline = [(live, "count"), (v, "sum")]
     every = headline + [(iv, "sum"), (iv, "min"), (iv, "max"),
-                        (v, "min"), (v, "max"), (pos, "firstpos")]
-    err = 0.0
-    for K, reqs in ((GROUPS, every), (300, every)):
+                        (v, "min"), (v, "max"),
+                        (torch.where(ids >= 0, pos, 2 ** 31 - 1), "firstpos")]
+    for K in (GROUPS, 300):
         seg = ids if K == GROUPS else torch.where(
             ids >= 0, (pos % 310) - 5, -1).to(torch.int32)
-        got = segment_reduce_multi(reqs, seg, K)
-        want = segment_reduce_multi_ref(reqs, seg, K)
-        ref64 = torch.zeros(K, dtype=torch.float64, device="cuda")
-        ok = (seg >= 0) & (seg < K)
-        ref64.index_add_(0, seg[ok].long(), v[ok].double())
-        for (vals, mode), a, b in zip(reqs, got, want):
-            if mode == "sum" and vals.dtype == torch.float32:
-                torch.testing.assert_close(a.double(), ref64, rtol=SUM_RTOL,
-                                           atol=0)
-                torch.testing.assert_close(a, b, rtol=SUM_RTOL, atol=0)
-            else:
-                assert torch.equal(bits(a), bits(b)), f"segment_reduce {mode}"
-            err = max(err, max_abs_diff(a, b))
+        err = max(err, seg_compare(
+            torch, f"segment_reduce ids form K={K}",
+            segment_reduce_multi(every, seg, K),
+            segment_reduce_multi_ref(every, seg, K), every))
+        names.append(f"ids form K = {K}")
+    del every, pos, iv, seg
     torch.cuda.synchronize()
-    # no one PyTorch call computes a count and a sum that drop ids
-    t = timings(torch, lambda: segment_reduce_multi(headline, ids, GROUPS),
-                lambda: segment_reduce_multi_ref(headline, ids, GROUPS), None,
-                n * (4 + 4 + 4) + GROUPS * (8 + 4))
-    log(f"kernel segment_reduce: integer modes exact, f32 sums within "
-        f"rtol {SUM_RTOL} (K={GROUPS} and 300, n={n}, max abs diff "
-        f"{err:.6g}); {t}")
+    # the keyed form at the headline group-by's shape: raw g (int32), keep
+    # (bool), v (f32) in; count (int64) and sum (f32) of 64 slots out.  No
+    # one PyTorch call counts and sums with dropped rows
+    t = timings(torch,
+                lambda: segment_reduce_keyed(head_keys, head_reqs, GROUPS,
+                                             keep, nr),
+                lambda: segment_reduce_keyed_ref(head_keys, head_reqs, GROUPS,
+                                                 keep, nr), None,
+                n * (4 + 1 + 4) + GROUPS * (8 + 4))
+    ids_ms = cuda_ms(torch, lambda: segment_reduce_multi(headline, ids,
+                                                         GROUPS))
+    ids_bound = bound_ms(n * (4 + 4 + 4) + GROUPS * (8 + 4))
+    log(f"kernel segment_reduce: bit-exact but f32 sums (rtol {SUM_RTOL}), "
+        f"NaN slots by isnan, 5 runs bit-identical, on {len(names)} cases "
+        f"({'; '.join(names)}; n={n}, max abs diff {err:.6g}); keyed form "
+        f"at the headline's shape (g, keep, v -> count, sum): {t}")
+    log(f"segment_reduce ids form at the headline's shape (ids, count lane, "
+        f"v): ms {ids_ms:.6g}, bound_ms {ids_bound:.6g}")
     return {"max_abs_err": err, **t}
 
 
@@ -1007,8 +1169,8 @@ def check_headline(out, fact, dim):
     """Rows of the headline query against a float64 numpy computation
     (bench.py:42-52).  Groups and counts match exactly.  Sums match within
     rtol 1e-4: the port accumulates in f32 (SUM keeps the input type, as
-    the reference does), about 780k rows per group at 100M rows, in an
-    order set by the kernel's atomics."""
+    the reference does), about 780k rows per group at 100M rows, in the
+    kernel's fixed order."""
     keep = fact["v"] > 0.5
     g = dim["g"][fact["fk"][keep]]
     sums = np.bincount(g, weights=fact["v"][keep].astype(np.float64),
@@ -1088,6 +1250,54 @@ def check_left_outer_unique(torch, out, fact, half):
     return int((~hit).sum())
 
 
+def dup_key_dim():
+    """Run (f)'s dim from default_rng(9): DIM_ROWS rows whose pk breaks its
+    UNIQUE promise (a permutation of [0, DIM_ROWS) halved, so each of
+    DIM_ROWS / 2 keys sits on two random rows) and a nullable g (10%
+    NULL)."""
+    rng = np.random.default_rng(9)
+    return {"pk": (rng.permutation(DIM_ROWS) // 2).astype(np.int32),
+            "g": rng.integers(0, GROUPS, DIM_ROWS).astype(np.int32),
+            "g_valid": rng.random(DIM_ROWS) >= 0.1}
+
+
+def dup_key_plan(T, fact_t, dup_t):
+    """Run (f): LEFT_OUTER UNIQUE join of the fact against the dim with
+    duplicate keys: the fat-LUT probe (pk is no row position)."""
+    return T.HashJoin(T.JoinType.LEFT_OUTER, ["fk"], ["pk"],
+                      T.ScanTable(fact_t), T.ScanTable(dup_t),
+                      T.KeyUniqueness.UNIQUE,
+                      lhs_projector=T.Projector.named("v"),
+                      rhs_projector=T.Projector.named("g"))
+
+
+def dup_key_want(torch, fact, dup, dev):
+    """Run (f)'s g column in numpy, last wins: each fact row takes the value
+    and validity of the LAST dim row holding its fk; NULL where none does.
+    Returns (values with 0 under NULL, validity) on ``dev``."""
+    keys = DIM_ROWS // 2
+    win = np.full(keys, -1, dtype=np.int64)
+    np.maximum.at(win, dup["pk"], np.arange(DIM_ROWS))
+    fk = fact["fk"]
+    hit = fk < keys
+    row = win[np.minimum(fk, keys - 1)]
+    valid = hit & dup["g_valid"][row]
+    values = np.where(valid, dup["g"][row], 0).astype(np.int32)
+    return (torch.from_numpy(values).to(dev), torch.from_numpy(valid).to(dev))
+
+
+def check_dup_key_join(torch, out, want):
+    """Run (f): every fact row in order, g from the last dim row of its key
+    (value and validity), NULL past the keys.  Returns the NULL count."""
+    assert int(out.num_rows) == FACT_ROWS, "(f): row count"
+    g = out.columns["g"]
+    got_valid = g.valid[:FACT_ROWS]
+    assert torch.equal(got_valid, want[1]), "(f): NULLs of g"
+    assert torch.equal(torch.where(got_valid, g.values[:FACT_ROWS], 0),
+                       want[0]), "(f): column g"
+    return int((~want[1]).sum())
+
+
 def main():
     import torch
 
@@ -1123,15 +1333,14 @@ def main():
     dim_g = torch.from_numpy(dim["g"]).to(dev)
     keep = v > 0.5
     all_ids = dim_g[fk.long()]
-    ids = torch.where(keep, all_ids, -1).to(torch.int32)
     results = {
         "compaction": check_compaction(torch, fk, v, keep),
         "lut_gather": check_lut_gather(torch, fk, dim_g),
-        "segment_reduce": check_segment_reduce(torch, ids, v),
+        "segment_reduce": check_segment_reduce(torch, all_ids, v, keep),
         "segment_reduce_small": check_segment_reduce_small(torch, all_ids, v),
         "spread": check_spread(torch, torch.from_numpy(dfact["v"]).to(dev)),
     }
-    del fk, v, dim_g, keep, ids, all_ids
+    del fk, v, dim_g, keep, all_ids
     mruns = merge_data(torch, dev)
     results["merge_sorted"] = check_merge_sorted(torch, mruns)
 
@@ -1171,6 +1380,8 @@ def main():
 
     out = drive("headline query", headline_plan(T, fact_t, dim_t),
                 ("segment_reduce", "lut_gather"))
+    assert kernels.launches["segment_reduce"] == 1, \
+        "headline: segment_reduce must be one launch"
     groups = check_headline(out, fact, dim)
     filtered = drive("Filter", T.Filter(pred(), T.ScanTable(fact_t)),
                      ("compaction",))
@@ -1217,8 +1428,23 @@ def main():
         rhs_projector=T.Projector.named("g")), ("lut_gather",))
     nulls = check_left_outer_unique(torch, out, fact, half)
     del out
+    dup = dup_key_dim()
+    dup_t = T.Table.from_numpy(
+        T.TupleSchema.of(("pk", T.INT32, False), ("g", T.INT32, True)),
+        {"pk": dup["pk"], "g": (dup["g"], dup["g_valid"])}, device=dev)
+    want_f = dup_key_want(torch, fact, dup, dev)
+    out = drive("(f) LEFT_OUTER UNIQUE join, duplicate rhs keys, fat LUT",
+                dup_key_plan(T, fact_t, dup_t), ("lut_gather",))
+    nulls_f = check_dup_key_join(torch, out, want_f)
+    del out
+    for run in range(4):  # the same rows, last wins, on every run
+        check_dup_key_join(torch, T.execute(dup_key_plan(T, fact_t, dup_t)),
+                           want_f)
+    del want_f, dup_t
     log(f"joins match numpy in order: (a) {DUP_OUT} rows; (b) {nb[0]} rows, "
-        f"{nb[1]} with a NULL w; (c) {FACT_ROWS} rows, {nulls} with a NULL g")
+        f"{nb[1]} with a NULL w; (c) {FACT_ROWS} rows, {nulls} with a NULL g; "
+        f"(f) {FACT_ROWS} rows, {nulls_f} with a NULL g, the last dim row of "
+        f"each duplicate key, 5 runs")
 
     merge_t = merge_tables(T, mruns, dev)
     out = drive("(d) MergeUnionAll 2 x 50M", merge_plan(T, merge_t),

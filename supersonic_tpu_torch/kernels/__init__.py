@@ -14,9 +14,10 @@ versions.  A wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches its kernel or raises.  A wrapper adds one to
 ``launches[name]`` right after each kernel launch it makes, and nowhere
 else: compaction launches one kernel (after zeroing its scratch with a
-memset), segment_reduce (and segment_reduce_small, one request of the same
-kernel) a partial and a final pass, spread a bounds and an expand kernel,
-merge_sorted a splits and a merge kernel, lut_gather one kernel.
+memset), segment_reduce (its keyed and ids forms, and segment_reduce_small,
+one request of the same kernel) one kernel (after a memset of its ticket),
+spread a bounds and an expand kernel, merge_sorted a splits and a merge
+kernel, lut_gather one kernel.
 """
 from __future__ import annotations
 
@@ -116,6 +117,7 @@ def _bind(lib) -> None:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     PP = ctypes.POINTER(ctypes.c_void_p)
     IP = ctypes.POINTER(ctypes.c_int)
+    LP = ctypes.POINTER(ctypes.c_longlong)
     sigs = {
         "ss_compact_tile_rows": [],
         "ss_compact": [P, L, L, I, I, PP, PP, IP, P, P, L, P],
@@ -123,8 +125,10 @@ def _bind(lib) -> None:
         "ss_lut_gather_specialised": [I, IP, PP],
         "ss_lut_gather": [P, L, I, I, PP, PP, IP, P],
         "ss_segment_reduce_threads": [],
-        "ss_segment_reduce_partial": [P, L, I, I, IP, PP, P, I, P],
-        "ss_segment_reduce_final": [P, I, I, I, IP, PP, P],
+        "ss_segment_reduce_smem_bytes": [],
+        "ss_segment_reduce_plan": [L, I, I, IP, I, IP, LP],
+        "ss_segment_reduce": [I, PP, IP, LP, IP, P, P, L, L, I, I, IP, PP, PP,
+                              PP, P, P, I, I, I, P],
         "ss_spread_tile_rows": [],
         "ss_spread_bounds": [P, I, L, P, P],
         "ss_spread_expand": [P, L, P, I, ctypes.c_uint, PP, PP, IP, P],

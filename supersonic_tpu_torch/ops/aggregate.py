@@ -4,8 +4,9 @@ Port of the dense path of ``supersonic_tpu/ops/aggregate.py``
 (``_dense_domain`` and ``_dense_grouped_aggregate``; reference:
 cursor/core/aggregate_groups.cc, column_aggregator.cc).  When the group
 keys have planner statistics whose composite range holds at most 2048
-slots, every aggregate is one request of ONE segment-reduce launch
-(kernels/segment_reduce.py); the K slots are then finalized and re-ranked
+slots, every aggregate is one request of ONE keyed segment-reduce launch
+(kernels/segment_reduce.py), which reads the raw key lanes and codes the
+slots itself; the K slots are then finalized and re-ranked
 to the reference's insertion order (first occurrence), unless the consumer
 re-orders the rows anyway (Sort binds its child ``_unordered``).
 
@@ -28,7 +29,6 @@ from ..batch import Column, Table
 from ..schema import Attribute, SchemaError, TupleSchema
 from ..types import DataType, torch_dtype
 from .base import BindContext, BoundOperation, Operation, RunContext, not_ported
-from .keys import monotone_code
 
 
 class Aggregation(enum.Enum):
@@ -94,7 +94,6 @@ def _resolve_output_attr(spec: AggSpec, schema: TupleSchema) -> Attribute:
 
 _DENSE_DOMAIN_MAX = 2048  # segment_reduce MAX_SEGMENTS
 _KEY_TYPES = (DataType.INT32, DataType.INT64)
-_I32_MAX = 2 ** 31 - 1
 
 
 def _dense_domain(cb, names, key_attrs, specs, schema_in):
@@ -134,57 +133,50 @@ def _dense_domain(cb, names, key_attrs, specs, schema_in):
 def _dense_grouped_aggregate(t: Table, dims, specs, schema_in, out_dicts,
                              out_schema, out_cap, K, rctx: RunContext,
                              keep=None, ordered=True):
-    """Dense-domain group-by: one fused segment-reduce launch over the
-    rows, then O(K) finalization."""
-    from ..kernels.segment_reduce import segment_reduce_multi
+    """Dense-domain group-by: one keyed segment-reduce launch over the raw
+    key lanes, ``keep`` and the row count (the kernel codes the slots, drops
+    and counts the live rows outside the planned domain), then O(K)
+    finalization.  A plan with more key dimensions than the kernel takes
+    (``MAX_KEYS``) is bound to pass one composite int32 slot lane instead,
+    computed here (-1 outside the domain, so the kernel counts those rows
+    all the same)."""
+    from ..kernels.segment_reduce import MAX_KEYS, segment_reduce_keyed
 
     dev = t.device
     cap = t.capacity
-    if keep is None:
-        keep = t.row_mask()
-    gid, in_domain = None, None
-    for name, _attr, kmin, K_i in dims:
-        v = t.columns[name].values.long() - kmin
-        ok = (v >= 0) & (v < K_i)
-        vc = v.clamp(0, K_i - 1)
-        gid = vc if gid is None else gid * K_i + vc
-        in_domain = ok if in_domain is None else (in_domain & ok)
-    rctx.error_flags.append((
-        "aggregate key exceeds planned dense domain",
-        (keep & ~in_domain).any()))
-    live = keep & in_domain
-    ids = torch.where(live, gid, -1).to(torch.int32)
+    if len(dims) <= MAX_KEYS:
+        keys = [(t.columns[name].values, kmin, K_i)
+                for name, _attr, kmin, K_i in dims]
+    else:
+        gid, in_domain = None, None
+        for name, _attr, kmin, K_i in dims:
+            v = t.columns[name].values.long() - kmin
+            ok = (v >= 0) & (v < K_i)
+            vc = v.clamp(0, K_i - 1)
+            gid = vc if gid is None else gid * K_i + vc
+            in_domain = ok if in_domain is None else (in_domain & ok)
+        keys = [(torch.where(in_domain, gid, -1).to(torch.int32), 0, K)]
 
     # every aggregate is one request of one launch, deduplicated by key
     reqs: list = []
     memo: dict = {}
 
-    def ask(key, make, mode):
+    def ask(key, values, valid, mode):
         if key not in memo:
             memo[key] = len(reqs)
-            reqs.append((make(), mode))
-
-    pos = None
-
-    def positions():
-        nonlocal pos
-        if pos is None:
-            pos = torch.arange(cap, dtype=torch.int32, device=dev)
-        return pos
+            reqs.append((values, valid, mode))
 
     def valid_key(s):
         c = t.columns[s.input]
         if c.valid is None:
             return ("count_all",)
-        ask(("valid", s.input), lambda: (live & c.valid).to(torch.int32),
-            "count")
+        ask(("valid", s.input), None, c.valid, "count")
         return ("valid", s.input)
 
-    ask(("count_all",), lambda: live.to(torch.int32), "count")
+    ask(("count_all",), None, None, "count")
     first = ("firstpos",)
-    make_first = (lambda: torch.where(live, positions(), _I32_MAX))
     if ordered:
-        ask(first, make_first, "firstpos")
+        ask(first, None, None, "firstpos")
     for s in specs:
         agg = s.aggregation
         if agg == Aggregation.COUNT and s.input is None:
@@ -194,29 +186,21 @@ def _dense_grouped_aggregate(t: Table, dims, specs, schema_in, out_dicts,
             valid_key(s)
         elif agg == Aggregation.SUM:
             valid_key(s)
-            ask(("sum", s.input),
-                lambda c=c: c.values if c.valid is None else torch.where(
-                    c.valid, c.values, torch.zeros_like(c.values)), "sum")
+            ask(("sum", s.input), c.values, c.valid, "sum")
         elif agg in (Aggregation.MIN, Aggregation.MAX):
+            # FLOAT and INT32 inputs only (_dense_domain): the kernel counts
+            # -0.0 as +0.0, as monotone_code does
             mode = "min" if agg == Aggregation.MIN else "max"
             valid_key(s)
-            in_t = schema_in.lookup(s.input).type
-
-            def make(c=c, in_t=in_t, mode=mode):
-                code = monotone_code(c.values, in_t)
-                if code.is_floating_point():
-                    init = float("inf") if mode == "min" else float("-inf")
-                else:
-                    init = _I32_MAX if mode == "min" else -(2 ** 31)
-                ok = live if c.valid is None else (live & c.valid)
-                return torch.where(ok, code, init)
-            ask((mode, s.input), make, mode)
+            ask((mode, s.input), c.values, c.valid, mode)
         elif agg == Aggregation.FIRST:
-            ask(first, make_first, "firstpos")
+            ask(first, None, None, "firstpos")
         elif agg == Aggregation.LAST:
-            ask(("pos", "max"),
-                lambda: torch.where(live, positions(), -(2 ** 31)), "max")
-    results = segment_reduce_multi(reqs, ids, K)
+            ask(("lastpos",), None, None, "lastpos")
+    results, bad = segment_reduce_keyed(keys, reqs, K, keep=keep,
+                                        num_rows=t.num_rows)
+    rctx.error_flags.append(("aggregate key exceeds planned dense domain",
+                             bad > 0))
 
     def got(key):
         return results[memo[key]]
@@ -252,7 +236,7 @@ def _dense_grouped_aggregate(t: Table, dims, specs, schema_in, out_dicts,
             cols_k[s.output] = Column(got((mode, s.input)).to(odt),
                                       got(vkey) > 0)
         else:  # FIRST / LAST: the value at the first / last live position
-            p = got(first if agg == Aggregation.FIRST else ("pos", "max"))
+            p = got(first if agg == Aggregation.FIRST else ("lastpos",))
             safe = p.clamp(0, cap - 1).long()
             fvalid = present if c.valid is None else (present & c.valid[safe])
             cols_k[s.output] = Column(c.values[safe].to(odt), fvalid)

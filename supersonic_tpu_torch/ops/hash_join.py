@@ -11,9 +11,11 @@ bind from planner statistics and guarded at run time by an error flag:
     (a dense ascending primary key, rowid_merge_join.h:24-40).  The probe
     reads the projected rhs columns at (probe key - min) with one
     ``lut_gather`` launch; there is no index at all.
-  * fat-LUT probe (UNIQUE): each projected rhs column (and its validity,
-    and a match flag) is scattered into a table indexed by key slot, and
-    the probe reads every lane with one ``lut_gather`` launch.
+  * fat-LUT probe (UNIQUE): one winning rhs row per key slot (the last,
+    found by a scatter-max of row positions) is gathered into a table of
+    each projected rhs column (and its validity, and a match flag) indexed
+    by key slot, and the probe reads every lane with one ``lut_gather``
+    launch.
   * CSR probe (NOT_UNIQUE): a stable sort of the rhs rows by key slot gives
     ``build_perm`` (equal keys keep the rhs order, the reference's
     match-list order), a search of the sorted slots gives each slot's start
@@ -112,22 +114,29 @@ def _fat_lut_probe(rt: Table, srcs, scat: torch.Tensor, pslot: torch.Tensor,
     rhs row (``rng`` for dead rows, a dump slot no probe reads); ``pslot``:
     int32 slot of each probe row, in [0, rng); ``pin``: probe rows that may
     match.  Returns ({src: Column at probe capacity}, matched); with
-    ``nullable_out`` (LEFT_OUTER) validity is masked to ``matched``."""
+    ``nullable_out`` (LEFT_OUTER) validity is masked to ``matched``.
+
+    Each slot takes ONE rhs row, the last one (largest row position), and
+    every lane of the slot is gathered from it: a rhs that breaks its UNIQUE
+    promise gives the JAX package's rows (its marker sort keeps each slot's
+    last build row), the same on every run, with a probe row's value and
+    validity from the same rhs row."""
     dev = rt.device
+    rows = torch.arange(scat.shape[0], dtype=torch.int32, device=dev)
+    winner = torch.full((rng + 1,), -1, dtype=torch.int32, device=dev)
+    winner.scatter_reduce_(0, scat, rows, "amax")
+    winner = winner[:rng]
+    flag = winner >= 0
+    at = winner.clamp(min=0).long()
     lanes, tags = [], []
     for src in dict.fromkeys(srcs):
         col = rt.columns[src]
-        lut = torch.zeros(rng + 1, dtype=col.values.dtype, device=dev)
-        lut[scat] = col.values
-        lanes.append(lut)
+        vals = col.values[at]
+        lanes.append(torch.where(flag, vals, torch.zeros_like(vals)))
         tags.append(("val", src))
         if col.valid is not None:
-            vlut = torch.zeros(rng + 1, dtype=torch.bool, device=dev)
-            vlut[scat] = col.valid
-            lanes.append(vlut)
+            lanes.append(col.valid[at] & flag)
             tags.append(("valid", src))
-    flag = torch.zeros(rng + 1, dtype=torch.bool, device=dev)
-    flag[scat] = True
     lanes.append(flag)
     gathered = lut_gather(lanes, pslot, rng)  # one launch, every lane
     got = dict(zip(tags, gathered))

@@ -407,3 +407,46 @@ def test_not_unique_join_under_group_aggregate_binds_unmasked():
     assert_grouped_equal(got, J.execute(jplan), "w", {"sv"}, rtol=1e-5)
     assert sum(r[2] for r in got.to_pylist()) == 8 * int(
         (fact["v"] > 0.5).sum())
+
+
+@pytest.mark.parametrize("jt", ["INNER", "LEFT_OUTER"])
+def test_unique_fat_lut_with_duplicate_rhs_keys_takes_the_last_row(jt):
+    """A UNIQUE rhs that breaks its promise (each key on two or three
+    rows): the fat-LUT probe gives a probe row the value and the validity
+    of the LAST rhs row holding its key, as the JAX package's marker sort
+    does, and numpy agrees."""
+    rng = np.random.default_rng(33)
+    m, keys = 700, 300
+    pk = np.concatenate([rng.permutation(keys), rng.permutation(keys),
+                         rng.integers(0, keys, m - 2 * keys)])
+    pk = pk[rng.permutation(m)].astype(np.int32)
+    r = rng.integers(-50, 50, m)
+    r_valid = rng.random(m) < 0.7
+    dim = {"pk": pk.tolist(),
+           "r": [int(x) if ok else None for x, ok in zip(r, r_valid)]}
+    fact = {"fk": rng.integers(0, keys + 30, 2000).astype(np.int32),
+            "v": rng.random(2000, dtype=np.float32)}
+    f = _both(FACT_SCHEMA, fact)
+    d = _both((("pk", "INT32", False), ("r", "INT64", True)), dim)
+    assert "pk" not in d[1].rowid
+
+    def make(ns, f, d):
+        return ns.HashJoin(getattr(ns.JoinType, jt), ["fk"], ["pk"],
+                           ns.ScanTable(f), ns.ScanTable(d),
+                           ns.KeyUniqueness.UNIQUE,
+                           rhs_projector=ns.Projector.named("r"))
+
+    rows = _same_rows(make, f, d)
+    last = {}
+    for i, key in enumerate(pk.tolist()):
+        last[key] = i
+    want = []
+    for fk, v in zip(fact["fk"].tolist(), fact["v"].tolist()):
+        if fk in last:
+            i = last[fk]
+            want.append((fk, v, int(r[i]) if r_valid[i] else None))
+        elif jt == "LEFT_OUTER":
+            want.append((fk, v, None))
+    assert rows == want
+    assert any(x[2] is None for x in rows) and any(x[2] is not None
+                                                   for x in rows)

@@ -21,7 +21,10 @@ from supersonic_tpu_torch.kernels.compaction import (TILE_ROWS,
                                                      vector_loads)
 from supersonic_tpu_torch.kernels.lut_gather import lut_gather
 from supersonic_tpu_torch.kernels.merge_sorted import MergeKey, merge_sorted
-from supersonic_tpu_torch.kernels.segment_reduce import segment_reduce_multi
+from supersonic_tpu_torch.kernels.segment_reduce import (
+    per_thread_accumulators, segment_reduce_keyed, segment_reduce_multi)
+from supersonic_tpu_torch.kernels.segment_reduce import \
+    vector_loads as seg_vector_loads
 from supersonic_tpu_torch.kernels.spread import spread_kernel
 
 torch.set_num_threads(1)
@@ -218,6 +221,168 @@ def test_segment_reduce_empty_slots_keep_init_values():
         segment_reduce_multi([(v, "sum")], ids, 4096)
 
 
+_I32_MIN, _I32_MAX = -(2 ** 31), 2 ** 31 - 1
+
+
+def _signed_zeros_and_nans(rng, x):
+    """f32 x with its zeros' signs and a few NaNs of both signs set by
+    their bits."""
+    bits = x.view(np.int32).copy()
+    zero = (bits & 0x7FFFFFFF) == 0
+    bits[zero] = np.where(rng.random(int(zero.sum())) < 0.5, _I32_MIN, 0)
+    at = rng.choice(x.shape[0], 12, replace=False)
+    bits[at[:6]] = 0x7FC00000     # +NaN
+    bits[at[6:]] = -0x00400000    # -NaN (0xFFC00000)
+    return bits.view(np.float32)
+
+
+def _jax_ids(keys, keep, num_rows):
+    """(ids, live, dropped live rows) computed in numpy as
+    supersonic_tpu/ops/aggregate.py:504-519 does: int32 key lanes in int32,
+    int64 lanes in int64, each dimension clipped into the mixed radix."""
+    n = keys[0][0].shape[0]
+    live = np.ones(n, bool) if keep is None else keep.copy()
+    if num_rows is not None:
+        live &= np.arange(n) < num_rows
+    gid, dom = None, None
+    for lane, kmin, k_i in keys:
+        v = (lane - lane.dtype.type(kmin)).astype(np.int64)
+        ok = (v >= 0) & (v < k_i)
+        vc = np.clip(v, 0, k_i - 1)
+        gid = vc if gid is None else gid * k_i + vc
+        dom = ok if dom is None else dom & ok
+    bad = int((live & ~dom).sum())
+    live &= dom
+    return np.where(live, gid, -1).astype(np.int32), live, bad
+
+
+def _jax_requests(reqs, live, n):
+    """The keyed requests as the JAX aggregate hands them to its kernel."""
+    out = []
+    pos = np.arange(n, dtype=np.int32)
+    for values, valid, mode in reqs:
+        ok = live if valid is None else live & valid
+        if mode == "count":
+            x = ok.astype(np.int32) if values is None else np.where(
+                ok, values, 0).astype(np.int32)
+        elif mode == "sum":
+            x = np.where(ok, values, 0).astype(values.dtype)
+        else:
+            vals = pos if values is None else values
+            lo = mode in ("min", "firstpos")
+            if vals.dtype == np.float32:
+                vals = np.where(vals == 0, np.float32(0), vals)  # keys.py
+                init = np.float32(np.inf if lo else -np.inf)
+            else:
+                init = np.int32(_I32_MAX if lo else _I32_MIN)
+            x = np.where(ok, vals, init).astype(vals.dtype)
+            mode = "firstpos" if mode == "firstpos" else (
+                "min" if lo else "max")
+        out.append((x, mode))
+    return out
+
+
+@pytest.mark.parametrize("case", ["int32", "int64", "int32_int64",
+                                  "int64_int32_rows"])
+def test_segment_reduce_keyed_matches_jax_kernel(case):
+    """The keyed form against the JAX kernel given the ids the JAX
+    aggregate computes: INT32 and INT64 keys, one and two dimensions,
+    kmin != 0, kept rows outside the domain (counted), a keep mask, a row
+    count, nullable inputs, NaNs of both signs and +-0 (min and max give
+    NaN to every group holding a NaN, as the JAX kernel does)."""
+    rng = np.random.default_rng(len(case))
+    n = jax_segment_reduce.TILE - 1000  # one tile of the JAX kernel
+    big = 5_000_000_000
+    if case == "int32":
+        keys = [(rng.integers(-9, 33, n).astype(np.int32), -7, 38)]
+    elif case == "int64":
+        keys = [(rng.integers(big - 2, big + 45, n), big, 43)]
+    elif case == "int32_int64":
+        keys = [(rng.integers(99, 112, n).astype(np.int32), 100, 11),
+                (rng.integers(-8, 2, n), -7, 9)]
+    else:
+        keys = [(rng.integers(big, big + 7, n), big, 7),
+                (rng.integers(-20, 21, n).astype(np.int32), -20, 40)]
+    K = int(np.prod([k for _, _, k in keys]))
+    keep = rng.random(n) < 0.8
+    num_rows = n - 777 if case.endswith("rows") else None
+    valid = rng.random(n) < 0.85
+    base = np.round(rng.standard_normal(n) * 2) / 2
+    fv = _signed_zeros_and_nans(rng, base.astype(np.float32))
+    iv = rng.integers(-1000, 1000, n).astype(np.int32)
+    reqs = [(None, None, "count"), (None, valid, "count"),
+            ((iv > 0).astype(np.int32), None, "count"),
+            (rng.random(n).astype(np.float32), valid, "sum"),
+            (fv, None, "sum"), (iv, valid, "sum"), (iv, None, "min"),
+            (iv, valid, "max"), (fv, valid, "min"), (fv, None, "max"),
+            (None, None, "firstpos"), (None, valid, "lastpos")]
+    nan_sum = 4  # (fv, None, "sum"): held against numpy, see below
+    ids, live, bad = _jax_ids(keys, keep, num_rows)
+    assert bad > 0
+    want = jax_segment_reduce.segment_reduce_multi(
+        [(jnp.asarray(x), m) for x, m in _jax_requests(reqs, live, n)],
+        jnp.asarray(ids), K)
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    got, got_bad = segment_reduce_keyed(
+        [(t(lane), kmin, k_i) for lane, kmin, k_i in keys],
+        [(t(v), t(d), m) for v, d, m in reqs], K, keep=t(keep),
+        num_rows=num_rows)
+    assert int(got_bad) == bad
+    assert got[0].dtype == torch.int64  # counts are exact int64
+    for q, ((v, _, mode), g, w) in enumerate(zip(reqs, got, want)):
+        g, w = g.numpy(), np.asarray(w).astype(g.numpy().dtype)
+        if q == nan_sum:
+            # the JAX kernel adds f32 sums as one-hot MXU dots, where a NaN
+            # row (times 0) makes every slot NaN; the port, like the C++
+            # reference, gives NaN only to the groups that hold one
+            assert np.isnan(w).all()
+            w64 = np.zeros(K)
+            np.add.at(w64, ids[ids >= 0], v[ids >= 0].astype(np.float64))
+            w = w64.astype(np.float32)
+        if g.dtype == np.float32:
+            assert np.array_equal(np.isnan(g), np.isnan(w)), mode
+            g, w = g[~np.isnan(g)], w[~np.isnan(w)]
+        if mode == "sum" and v.dtype == np.float32:
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-4)
+        else:  # bit for bit: +-0 count as +0, so min and max are exact
+            np.testing.assert_array_equal(g.view(np.int32) if g.dtype ==
+                                          np.float32 else g,
+                                          w.view(np.int32) if w.dtype ==
+                                          np.float32 else w)
+
+
+def test_segment_reduce_host_helpers():
+    """The instance and load routes the wrapper picks, from the requests'
+    footprint and the inputs' alignment."""
+    f = torch.zeros(8)
+    i = torch.zeros(8, dtype=torch.int32)
+    # the headline's count + f32 sum over 64 slots: per-thread instance
+    assert per_thread_accumulators(64, [(None, None, "count"),
+                                        (f, None, "sum")])
+    # two f32 sums over 300 slots, 16 requests over 2048: per-warp
+    assert not per_thread_accumulators(300, [(f, None, "sum")] * 2)
+    assert not per_thread_accumulators(2048, [(i, None, "max")] * 16)
+    x = torch.zeros(64, dtype=torch.int32)
+    assert seg_vector_loads([x, x[4:]]) and not seg_vector_loads([x, x[1:]])
+
+
+@pytest.mark.parametrize("bad_call", [
+    lambda k: segment_reduce_keyed([(k, 0, 4)], [(None, None, "sum")], 4),
+    lambda k: segment_reduce_keyed([(k, 0, 4)], [(None, None, "count")], 5),
+    lambda k: segment_reduce_keyed([(k.float(), 0, 4)],
+                                   [(None, None, "count")], 4),
+    lambda k: segment_reduce_keyed([(k, 0, 2)] * 5, [(None, None, "count")],
+                                   32),
+    lambda k: segment_reduce_keyed([(k, 0, 4)], [(None, None, "median")], 4),
+    lambda k: segment_reduce_keyed([(k, 0, 4)], [(k.float(), None,
+                                                  "firstpos")], 4),
+], ids=["sum_without_values", "domain_mismatch", "float_key",
+        "five_keys", "unknown_mode", "float_positions"])
+def test_segment_reduce_keyed_rejects_bad_calls(bad_call):
+    with pytest.raises(ValueError):
+        bad_call(torch.zeros(8, dtype=torch.int32))
+
+
 def test_cpu_wrappers_launch_no_kernel():
     kernels.reset_launches()
     m = torch.ones(8, dtype=torch.bool)
@@ -225,6 +390,8 @@ def test_cpu_wrappers_launch_no_kernel():
     lut_gather([torch.arange(8)], torch.zeros(8, dtype=torch.int32), 8)
     segment_reduce_multi([(torch.ones(8), "sum")],
                          torch.zeros(8, dtype=torch.int32), 2)
+    segment_reduce_keyed([(torch.zeros(8, dtype=torch.int32), 0, 2)],
+                         [(None, None, "count")], 2)
     spread_kernel([torch.arange(8)], torch.arange(8, dtype=torch.int32), 9)
     k = torch.arange(8, dtype=torch.int32)
     merge_sorted([k, k.double()], [k, k.double()], [MergeKey(1, False)], 16)

@@ -191,6 +191,74 @@ def test_dense_aggregate_modes_match_jax():
                 np.testing.assert_allclose(a, b, rtol=1e-5)
 
 
+def _signed_zeros(rng, x):
+    """f32 x with its zeros' signs set at random, by their bits."""
+    bits = x.view(np.int32).copy()
+    zero = (bits & 0x7FFFFFFF) == 0
+    bits[zero] = np.where(rng.random(int(zero.sum())) < 0.5, -2 ** 31, 0)
+    return bits.view(np.float32)
+
+
+def test_dense_aggregate_float_nans_and_signed_zeros_match_jax():
+    """MIN and MAX of a nullable FLOAT column holding NaNs of both signs
+    (set by their bits) and +-0 match the JAX package: NaN for every group
+    holding one (compared by isnan), every other group bit for bit, -0.0
+    counting as +0.0.  SUM over +-0 matches it within rtol.  SUM over the
+    NaN column gives NaN to exactly the groups holding one (numpy): the JAX
+    kernel adds f32 sums as one-hot MXU dots, where a NaN row times 0 makes
+    every group NaN."""
+    rng = np.random.default_rng(6)
+    n = 3000
+    k = rng.integers(-20, 20, n).astype(np.int32)
+    base = (np.round(rng.standard_normal(n) * 2) / 2).astype(np.float32)
+    # groups of even k hold values <= 0 and odd ones >= 0, so +-0 decides
+    # many a max and a min
+    z = _signed_zeros(rng, np.where(k % 2 == 0, -np.abs(base),
+                                    np.abs(base)).astype(np.float32))
+    f = z.copy()
+    nan_bits = f.view(np.int32)
+    nan_bits[rng.choice(n, 5, replace=False)] = 0x7FC00000   # +NaN
+    nan_bits[rng.choice(n, 5, replace=False)] = -0x00400000  # -NaN
+    f_valid = rng.random(n) < 0.9
+    cols = (("k", "INT32", False), ("f", "FLOAT", True), ("z", "FLOAT", False))
+    jt = J.Table.from_arrays(schema(J, cols), {"k": k, "f": f, "z": z},
+                             {"f": f_valid}, n)
+    tt = T.Table.from_numpy(schema(T, cols),
+                            {"k": k, "f": (f, f_valid), "z": z},
+                            device="cpu")
+
+    def plan(ns, t):
+        A = ns.Aggregation
+        return ns.GroupAggregate(["k"], [
+            ns.AggSpec(A.MIN, "f", "minf"), ns.AggSpec(A.MAX, "f", "maxf"),
+            ns.AggSpec(A.SUM, "z", "sz"), ns.AggSpec(A.SUM, "f", "sf"),
+            ns.AggSpec(A.COUNT, "f", "cf")], ns.ScanTable(t))
+
+    got = T.execute(plan(T, tt)).to_pylist()
+    want = J.execute(plan(J, jt)).to_pylist()
+    assert [r[0] for r in got] == [r[0] for r in want] and len(got) == 40
+    assert [r[5] for r in got] == [r[5] for r in want]
+    for c in (1, 2):  # MIN, MAX
+        a = np.array([r[c] for r in got], np.float32)
+        b = np.array([r[c] for r in want], np.float32)
+        assert np.array_equal(np.isnan(a), np.isnan(b)) and np.isnan(a).any()
+        np.testing.assert_array_equal(a[~np.isnan(a)].view(np.int32),
+                                      b[~np.isnan(b)].view(np.int32))
+    np.testing.assert_allclose([r[3] for r in got], [r[3] for r in want],
+                               rtol=1e-5)
+    sums = {}
+    for key, x, ok in zip(k, f, f_valid):
+        if ok:
+            sums[int(key)] = sums.get(int(key), 0.0) + float(x)
+    sf = np.array([r[4] for r in got])
+    want_sf = np.array([sums[r[0]] for r in got])
+    assert np.array_equal(np.isnan(sf), np.isnan(want_sf))
+    assert 0 < np.isnan(sf).sum() < len(got)
+    np.testing.assert_allclose(sf[~np.isnan(sf)], want_sf[~np.isnan(sf)],
+                               rtol=1e-5)
+    assert all(np.isnan(r[4]) for r in want)  # the JAX kernel's one-hot dot
+
+
 @pytest.mark.parametrize("make", [
     # dense LEFT_OUTER and NOT_UNIQUE joins are ported; without dense
     # lookups they need the merge probe, which is not
@@ -275,6 +343,34 @@ def test_composite_keys_match_jax():
         [(g, b, c) for g, b, _, c in want]
     np.testing.assert_allclose([r[2] for r in got], [r[2] for r in want],
                                rtol=1e-5)
+
+
+def test_dense_aggregate_over_more_keys_than_the_kernel_takes():
+    """Five dense group keys (the kernel codes up to four): the aggregate
+    passes one composite slot lane instead, and the rows, their order and
+    the stale-statistics flag match the JAX package."""
+    rng = np.random.default_rng(8)
+    n = 900
+    names = ["a", "b", "c", "d", "e"]
+    data = {nm: rng.integers(0, 3, n).astype(np.int32) for nm in names}
+    data["v"] = rng.integers(-9, 9, n).astype(np.int32)
+    cols = tuple((nm, "INT32", False) for nm in names) + (
+        ("v", "INT32", False),)
+
+    def plan(ns, t):
+        A = ns.Aggregation
+        return ns.GroupAggregate(names, [ns.AggSpec(A.SUM, "v", "s"),
+                                         ns.AggSpec(A.MIN, "v", "m"),
+                                         ns.AggSpec(A.COUNT, None, "n")],
+                                 ns.ScanTable(t))
+
+    jt, tt = jax_table(J, cols, data), torch_table(T, cols, data)
+    got = T.execute(plan(T, tt)).to_pylist()
+    assert got == J.execute(plan(J, jt)).to_pylist() and len(got) > 200
+    stale = dict(data, e=data["e"] + 2)
+    (jt2, tt2) = jax_table(J, cols, stale), torch_table(T, cols, stale)
+    assert torch_raised(plan(T, tt), [tt2]) == jax_raised(
+        plan(J, jt), [jt2]) == {"aggregate key exceeds planned dense domain"}
 
 
 def test_from_data_takes_the_jax_argument_order():
