@@ -2,11 +2,13 @@
 """Chip smoke test of the PyTorch/CUDA port (supersonic_tpu_torch).
 
 Drives the port's main paths on one CUDA card at real size: the headline
-query (BASELINE.json configs 4/5: FK build 1M x probe 100M, 64 groups),
-the multi-match join of bench_ops.py:188-206 ("join NOT_UNIQUE dup8")
-scaled to emit 100M rows (dim 1M rows, 8 per key; fact 12.5M rows), and
-the sorted merge of bench_ops.py:281-299 ("merge_union 2x4M") scaled to
-2 x 50M rows:
+query (BASELINE.json configs 4/5: FK build 1M x probe 100M, 64 groups)
+under both of its bindings, the multi-match join of bench_ops.py:188-206
+("join NOT_UNIQUE dup8") scaled to emit 100M rows (dim 1M rows, 8 per
+key; fact 12.5M rows), the sorted merge of bench_ops.py:281-299
+("merge_union 2x4M") scaled to 2 x 50M rows, and bench_ops.py's two
+group-bys ("groupby 8M->1M keys", "groupby_str 8M->50") and a DOUBLE
+SUM into 64 groups (TPC-H Q1's shape) at 100M rows:
 
   1. environment: torch version, the card, nvidia-smi's name and power limit
   2. build: compiles the CUDA kernels from csrc/ (one nvcc per source, all
@@ -48,11 +50,21 @@ the sorted merge of bench_ops.py:281-299 ("merge_union 2x4M") scaled to
      sorted by (g ASC, v DESC), 100M rows; (e) a 4-way MergeUnionAll of
      25M-row runs by (k INT64 nullable ASC, d DOUBLE DESC) with NaNs of
      both signs and +-0, carrying a STRING column whose runs have four
-     dictionaries, then the UnionAll of the same runs.  Each is checked
-     against numpy.  Then (e)'s three fold steps, each timed with its
-     bound and its launches
-  5. the median times of the headline query, of join (a) and of merges (d)
-     and (e)
+     dictionaries, then the UnionAll of the same runs; then three
+     group-bys: (g) bench_ops.py:136-140's "groupby 8M->1M keys" at the
+     headline's 100M rows (SUM v, COUNT(*), SUM d DOUBLE, MAX v: the sort
+     path, twice, bit for bit); (j) TPC-H Q1's shape, a DOUBLE SUM into
+     64 groups under a fused Filter by an INT64 key of huge values (the
+     sort path over a compacted order, twice, bit for bit); (h)
+     bench_ops.py:234-238's "groupby_str
+     8M->50" at 100M rows (dense by the dictionary, one segment-reduce
+     launch); (i) the headline through the aggregate pushdown binding,
+     under its Sort and in insertion order, row for row against the
+     direct binding.  Each is checked against numpy.  Then (e)'s three
+     fold steps, each timed with its bound and its launches
+  5. the median times of the headline query (under both bindings, and
+     its aggregate in insertion order under both), of join (a), of merges
+     (d) and (e) and of group-bys (g), (h) and (j)
 
 It prints one JSON line of per-kernel results, then as its last line
 ``{"ok": true, "device": {...}}``.  It exits non-zero, and prints no
@@ -83,6 +95,19 @@ DUP_OUT = 8 * DUP_FACT_ROWS
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 MERGE_RUN_ROWS = 50_000_000   # bench_ops.py:281-299's 2 x 4M runs, scaled
 MERGE4_RUN_ROWS = 25_000_000  # path (e): 4 runs
+HI_KEYS = DIM_ROWS            # path (g): bench_ops.py:136-140's 1M keys
+FEW_GROUPS = 64               # path (j): a DOUBLE SUM into a few groups
+FEW_KEY_STEP = 10**12         # path (j): INT64 keys far above the row count
+DOUBLE_RTOL = 1e-12           # DOUBLE sums, of the group's sum of |d|
+WORDS = sorted([              # path (h): bench_ops.py:219-226's 50 keys
+    "alpha", "bravo", "charlie", "delta", "echo", "foxtrot", "golf",
+    "hotel", "india", "juliett", "kilo", "lima", "mike", "november",
+    "oscar", "papa", "quebec", "romeo", "sierra", "tango", "uniform",
+    "victor", "whiskey", "xray", "yankee", "zulu", "amber", "bronze",
+    "copper", "dune", "ember", "flint", "granite", "harbor", "island",
+    "jade", "krypton", "lagoon", "meadow", "nickel", "onyx", "prairie",
+    "quartz", "ridge", "summit", "tundra", "umber", "valley", "willow",
+    "zenith"])
 
 
 def log(msg):
@@ -1298,6 +1323,212 @@ def check_dup_key_join(torch, out, want):
     return int((~want[1]).sum())
 
 
+def groupby_hi_tables(T, fact, dev):
+    """Path (g)'s fact: the headline's fk (uniform over 1M keys) and v, and
+    a DOUBLE d = rng.random(n) * 2e3 - 1e3 from default_rng(11), as
+    bench_ops.py:119-126 makes it.  Returns (table, d)."""
+    d = np.random.default_rng(11).random(FACT_ROWS) * 2e3 - 1e3
+    schema = T.TupleSchema.of(("fk", T.INT32, False), ("v", T.FLOAT, False),
+                              ("d", T.DOUBLE, False))
+    return T.Table.from_numpy(schema, dict(fact, d=d), device=dev), d
+
+
+def groupby_hi_plan(T, t):
+    """Path (g): bench_ops.py:136-140's "groupby 8M->1M keys" at the
+    headline's 100M rows, with COUNT(*), a DOUBLE SUM and a MAX beside its
+    SUM: the sort path (1M keys is past the dense domain), insertion
+    order."""
+    A = T.Aggregation
+    return T.GroupAggregate(
+        ["fk"], [T.AggSpec(A.SUM, "v", "sv"), T.AggSpec(A.COUNT, None, "c"),
+                 T.AggSpec(A.SUM, "d", "sd"), T.AggSpec(A.MAX, "v", "mx")],
+        T.ScanTable(t), T.GroupAggregateOptions(
+            estimated_result_row_count=HI_KEYS))
+
+
+def groupby_hi_want(fk, v, d):
+    """Path (g) in numpy, in first-occurrence order: (keys, counts, f64
+    sums of v, f64 sums of d, sums of |d|, max of v) from one stable
+    argsort."""
+    order = np.argsort(fk, kind="stable")
+    fs = fk[order]
+    starts = np.flatnonzero(np.r_[True, fs[1:] != fs[:-1]])
+    ins = np.argsort(order[starts], kind="stable")
+    ds = d[order]
+    return (fs[starts][ins],
+            np.diff(np.r_[starts, fk.shape[0]])[ins],
+            np.add.reduceat(v[order].astype(np.float64), starts)[ins],
+            np.add.reduceat(ds, starts)[ins],
+            np.add.reduceat(np.abs(ds), starts)[ins],
+            np.maximum.reduceat(v[order], starts)[ins])
+
+
+def check_groupby_hi(torch, out, want):
+    """Path (g): keys in first-occurrence order and counts exact, sv within
+    rtol 1e-4 of the f64 sum, sd within 1e-12 of the group's sum of |d|,
+    mx bit for bit, no NULL.  Returns the group count."""
+    keys, counts, sv, sd, sabs, mx = want
+    n = keys.shape[0]
+    assert int(out.num_rows) == n, "(g): group count"
+    got = {c: out.columns[c].values[:n].cpu().numpy()
+           for c in ("fk", "c", "sv", "sd", "mx")}
+    for c in ("sv", "sd", "mx"):
+        assert bool(out.columns[c].valid[:n].all()), f"(g): NULL in {c}"
+    assert np.array_equal(got["fk"], keys), "(g): keys or their order"
+    assert np.array_equal(got["c"], counts), "(g): counts"
+    np.testing.assert_allclose(got["sv"], sv, rtol=SUM_RTOL)
+    assert np.all(np.abs(got["sd"] - sd) <= DOUBLE_RTOL * sabs), "(g): sd"
+    assert np.array_equal(got["mx"].view(np.int32), mx.view(np.int32)), \
+        "(g): mx"
+    return n
+
+
+def same_bits(torch, a, b):
+    """Whether two tables hold the same bits in every live value and
+    validity."""
+    n = int(a.num_rows)
+    if n != int(b.num_rows):
+        return False
+    for name in a.schema.names():
+        ca, cb = a.columns[name], b.columns[name]
+        if not torch.equal(bits(ca.values[:n]), bits(cb.values[:n])):
+            return False
+        if (ca.valid is None) != (cb.valid is None) or (
+                ca.valid is not None
+                and not torch.equal(ca.valid[:n], cb.valid[:n])):
+            return False
+    return True
+
+
+def groupby_few_table(T, fact, d, dev):
+    """Path (j)'s fact: k INT64 = (fk mod 64) * 10^12 + 3, 64 keys whose
+    values lie far above any row number, the headline's v and (g)'s DOUBLE
+    d.  Returns (table, fk mod 64)."""
+    g = (fact["fk"] % FEW_GROUPS).astype(np.int64)
+    schema = T.TupleSchema.of(("k", T.INT64, False), ("v", T.FLOAT, False),
+                              ("d", T.DOUBLE, False))
+    return T.Table.from_numpy(schema, {"k": g * FEW_KEY_STEP + 3,
+                                       "v": fact["v"], "d": d},
+                              device=dev), g
+
+
+def groupby_few_plan(T, t):
+    """Path (j): TPC-H Q1's shape, a DOUBLE SUM (with an f32 SUM and a
+    COUNT(*)) into a few groups, under a fused Filter(v > 0.5) and by an
+    INT64 key of huge values: the sort path (a DOUBLE input is past the
+    dense kernel), whose sorted order the compaction kernel cuts to the
+    kept rows, and whose runs are 780k rows each."""
+    A = T.Aggregation
+    return T.GroupAggregate(
+        ["k"], [T.AggSpec(A.SUM, "d", "sd"), T.AggSpec(A.SUM, "v", "sv"),
+                T.AggSpec(A.COUNT, None, "c")],
+        T.Filter(T.col("v") > T.Const(0.5, T.FLOAT), T.ScanTable(t)),
+        T.GroupAggregateOptions(estimated_result_row_count=FEW_GROUPS))
+
+
+def check_groupby_few(out, g, v, d):
+    """Path (j): the 64 keys in first-occurrence order among the kept rows,
+    counts exact, sd within 1e-12 of its group's sum of |d|, sv within
+    rtol 1e-4 of float64.  Returns the group count."""
+    keep = v > 0.5
+    gk = g[keep]
+    present, first = np.unique(gk[:100_000], return_index=True)
+    assert present.shape[0] == FEW_GROUPS  # every group occurs in it
+    order = present[np.argsort(first)]
+    counts = np.bincount(gk, minlength=FEW_GROUPS)
+    sd = np.bincount(gk, weights=d[keep], minlength=FEW_GROUPS)
+    sabs = np.bincount(gk, weights=np.abs(d[keep]), minlength=FEW_GROUPS)
+    sv = np.bincount(gk, weights=v[keep].astype(np.float64),
+                     minlength=FEW_GROUPS)
+    rows = out.to_pylist()
+    assert [r[0] for r in rows] == [int(x) * FEW_KEY_STEP + 3
+                                    for x in order], "(j): keys or order"
+    assert [r[3] for r in rows] == [int(counts[x]) for x in order], \
+        "(j): counts"
+    got_sd = np.array([r[1] for r in rows])
+    assert np.all(np.abs(got_sd - sd[order]) <= DOUBLE_RTOL * sabs[order]), \
+        "(j): sd"
+    np.testing.assert_allclose([r[2] for r in rows], sv[order],
+                               rtol=SUM_RTOL)
+    return len(rows)
+
+
+def groupby_str_table(T, fact, dev):
+    """Path (h)'s fact: k, a STRING column of the 50 words (int32 codes
+    uniform over them, from default_rng(12), with their sorted Dictionary),
+    and the headline's v.  Returns (table, codes)."""
+    codes = np.random.default_rng(12).integers(
+        0, len(WORDS), FACT_ROWS).astype(np.int32)
+    schema = T.TupleSchema.of(("k", T.STRING, False), ("v", T.FLOAT, False))
+    return T.Table.from_numpy(schema, {"k": codes, "v": fact["v"]}, None,
+                              {"k": T.Dictionary(tuple(WORDS))},
+                              device=dev), codes
+
+
+def groupby_str_plan(T, t):
+    """Path (h): bench_ops.py:234-238's "groupby_str 8M->50" at 100M rows,
+    with a COUNT(*): dense by the dictionary's 50 codes."""
+    A = T.Aggregation
+    return T.GroupAggregate(
+        ["k"], [T.AggSpec(A.SUM, "v", "sv"), T.AggSpec(A.COUNT, None, "c")],
+        T.ScanTable(t), T.GroupAggregateOptions(estimated_result_row_count=64))
+
+
+def check_groupby_str(out, codes, v):
+    """Path (h): the 50 words in first-occurrence order, counts exact, sums
+    within rtol 1e-4 of float64."""
+    prefix = codes[:100_000]  # every word occurs in it (asserted)
+    present, first = np.unique(prefix, return_index=True)
+    assert present.shape[0] == len(WORDS)
+    order = present[np.argsort(first)]
+    counts = np.bincount(codes, minlength=len(WORDS))
+    sums = np.bincount(codes, weights=v.astype(np.float64),
+                       minlength=len(WORDS))
+    rows = out.to_pylist()
+    assert [r[0] for r in rows] == [WORDS[c] for c in order], \
+        "(h): words or their order"
+    assert [r[2] for r in rows] == [int(counts[c]) for c in order], \
+        "(h): counts"
+    np.testing.assert_allclose([r[1] for r in rows], sums[order],
+                               rtol=SUM_RTOL)
+    return len(rows)
+
+
+def pushdown_plans(T, fact_t, dim_t):
+    """Path (i): the headline plan, and its aggregate alone (insertion
+    order), each (pushdown binding, direct binding): the aggregate's
+    ``_pushdown_disabled`` set either way."""
+    plans = []
+    for sort in (True, False):
+        pair = []
+        for disabled in (False, True):
+            p = headline_plan(T, fact_t, dim_t)
+            agg = p.child
+            agg._pushdown_disabled = disabled
+            pair.append(p if sort else agg)
+        plans.append(pair)
+    return plans
+
+
+def check_pushdown(out, direct, ordered):
+    """Path (i): the pushdown binding's rows equal the direct binding's:
+    keys and counts exact, sums within rtol 1e-4; in order without the
+    Sort, by key under it (sums that differ in their last bits may swap
+    two near-equal groups there)."""
+    got, want = out.to_pylist(), direct.to_pylist()
+    assert [a.name for a in out.schema] == [a.name for a in direct.schema]
+    assert [a.type for a in out.schema] == [a.type for a in direct.schema]
+    if not ordered:
+        got, want = sorted(got), sorted(want)
+        svs = [r[1] for r in out.to_pylist()]
+        assert all(a >= b for a, b in zip(svs, svs[1:])), "(i): sv order"
+    assert [(r[0], r[2]) for r in got] == [(r[0], r[2]) for r in want], \
+        "(i): keys, counts or their order"
+    np.testing.assert_allclose([r[1] for r in got], [r[1] for r in want],
+                               rtol=SUM_RTOL)
+    return len(got)
+
+
 def main():
     import torch
 
@@ -1466,6 +1697,46 @@ def main():
         f"{n_e[1]} with a NULL k, {n_e[2]} with a NaN d; the UnionAll of "
         f"(e)'s runs matches their concatenation")
 
+    hi_t, hi_d = groupby_hi_tables(T, fact, dev)
+    want_g = groupby_hi_want(fact["fk"], fact["v"], hi_d)
+    few_t, few_g = groupby_few_table(T, fact, hi_d, dev)
+    out = drive("(g) sort-path group-by 100M -> 1M keys",
+                groupby_hi_plan(T, hi_t), ("compaction",))
+    n_g = check_groupby_hi(torch, out, want_g)
+    del want_g
+    again = T.execute(groupby_hi_plan(T, hi_t))
+    assert same_bits(torch, out, again), "(g): a second run differs"
+    del out, again
+    out = drive("(j) sort-path group-by under a Filter, 64 INT64 keys",
+                groupby_few_plan(T, few_t), ("compaction", "lut_gather"))
+    n_j = check_groupby_few(out, few_g, fact["v"], hi_d)
+    again = T.execute(groupby_few_plan(T, few_t))
+    assert same_bits(torch, out, again), "(j): a second run differs"
+    del out, again, few_g, hi_d
+    str_t, codes = groupby_str_table(T, fact, dev)
+    out = drive("(h) dense STRING-key group-by 100M -> 50 keys",
+                groupby_str_plan(T, str_t), ("segment_reduce",))
+    assert kernels.launches["segment_reduce"] == 1, \
+        "(h): segment_reduce must be one launch"
+    n_h = check_groupby_str(out, codes, fact["v"])
+    del out, codes
+    n_i = []
+    for ordered, (pushed, direct) in zip(
+            (False, True), pushdown_plans(T, fact_t, dim_t)):
+        label = ("(i) headline aggregate, pushdown binding" if ordered
+                 else "(i) headline query, pushdown binding")
+        out = drive(label, pushed, ("compaction", "lut_gather"))
+        n_i.append(check_pushdown(out, T.execute(direct), ordered))
+        del out
+    log(f"group-bys match numpy: (g) {n_g} groups in first-occurrence "
+        f"order, counts exact, sv rtol {SUM_RTOL}, sd within "
+        f"{DOUBLE_RTOL} of its sum of |d|, mx bit for bit, a second run "
+        f"bit for bit; (h) {n_h} words in order, counts exact, sv rtol "
+        f"{SUM_RTOL}; (i) the pushdown binding's {n_i[0]} sorted and "
+        f"{n_i[1]} ordered rows equal the direct binding's; (j) {n_j} keys "
+        f"in first-occurrence order, counts exact, sd within {DOUBLE_RTOL} "
+        f"of its sum of |d|, sv rtol {SUM_RTOL}, a second run bit for bit")
+
     # 5. times, host clock around execute (which ends in a sync)
     def median_ms(plan_fn, label, size):
         times = []
@@ -1488,6 +1759,20 @@ def main():
               f"2 x {MERGE_RUN_ROWS} -> {2 * MERGE_RUN_ROWS} rows")
     median_ms(lambda: merge4_plan(T, m4_t), "(e) 4-way MergeUnionAll",
               f"4 x {MERGE4_RUN_ROWS} -> {4 * MERGE4_RUN_ROWS} rows")
+    median_ms(lambda: groupby_hi_plan(T, hi_t), "(g) sort-path group-by",
+              f"{FACT_ROWS} -> {HI_KEYS} keys")
+    median_ms(lambda: groupby_str_plan(T, str_t),
+              "(h) dense STRING-key group-by",
+              f"{FACT_ROWS} -> {len(WORDS)} keys")
+    median_ms(lambda: groupby_few_plan(T, few_t),
+              "(j) sort-path group-by under a Filter",
+              f"{FACT_ROWS} -> {FEW_GROUPS} INT64 keys")
+    for i, label in enumerate(("(i) headline query", "(i) headline aggregate "
+                               "in insertion order")):
+        for j, binding in enumerate(("pushdown", "direct")):
+            median_ms(lambda: pushdown_plans(T, fact_t, dim_t)[i][j],
+                      f"{label}, {binding} binding",
+                      f"{FACT_ROWS} x {DIM_ROWS}")
 
     meta = {
         "compaction": ("supersonic_tpu_torch/csrc/compaction.cu",

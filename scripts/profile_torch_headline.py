@@ -10,7 +10,13 @@ join into 100M rows; ``merge`` builds chip_smoke.py's two sorted 50M-row
 runs and profiles merge (d), the MergeUnionAll of bench_ops.py:281-299 into
 100M rows; ``e`` builds chip_smoke.py's four sorted 25M-row runs and
 profiles merge (e), their 4-way MergeUnionAll by (k INT64 nullable ASC, d
-DOUBLE DESC) into 100M rows.  The plan runs twice to warm up, then five
+DOUBLE DESC) into 100M rows; ``pushdown`` profiles the headline plan
+through the aggregate pushdown binding (chip_smoke.py's path (i), under
+its Sort); ``groupby_hi`` profiles chip_smoke.py's path (g), the
+sort-path group-by of the headline's 100M fact rows into 1M keys;
+``groupby_few`` profiles its path (j), a DOUBLE SUM of those rows into 64
+INT64 keys under a fused Filter.  The
+plan runs twice to warm up, then five
 runs give the host-clock median (each ends in a sync), then three runs are
 profiled with torch.profiler.  Prints the card (nvidia-smi name and power
 limit), the median, the wall time per profiled run, the device kernel time
@@ -19,7 +25,8 @@ rows repeat their kernels' time), the busy share (device / wall), the peak
 device memory above the inputs, and the table of ops and kernels by device
 time.
 
-    python3 scripts/profile_torch_headline.py [headline|dup8|merge|e]
+    python3 scripts/profile_torch_headline.py \
+        [headline|dup8|merge|e|pushdown|groupby_hi|groupby_few]
 """
 import pathlib
 import statistics
@@ -27,6 +34,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -49,7 +57,7 @@ def main():
     print(f"card: {smi}")
     dev = torch.device("cuda", 0)
     which = sys.argv[1] if len(sys.argv) > 1 else "headline"
-    if which == "headline":
+    if which in ("headline", "pushdown", "groupby_hi", "groupby_few"):
         fact, dim = chip_smoke.make_data()
         fs, ds = chip_smoke.schemas(T)
     elif which == "dup8":
@@ -65,9 +73,14 @@ def main():
         torch.cuda.empty_cache()
     else:
         sys.exit(f"profile_torch_headline: unknown plan {which!r}")
-    if which in ("headline", "dup8"):
+    if which in ("headline", "dup8", "pushdown"):
         fact_t = T.Table.from_numpy(fs, fact, device=dev)
         dim_t = T.Table.from_numpy(ds, dim, device=dev)
+    if which == "groupby_hi":
+        hi_t = chip_smoke.groupby_hi_tables(T, fact, dev)[0]
+    if which == "groupby_few":
+        d = np.random.default_rng(11).random(chip_smoke.FACT_ROWS) * 2e3 - 1e3
+        few_t = chip_smoke.groupby_few_table(T, fact, d, dev)[0]
 
     def plan():
         if which == "headline":
@@ -76,6 +89,12 @@ def main():
             return chip_smoke.merge_plan(T, runs)
         if which == "e":
             return chip_smoke.merge4_plan(T, runs)
+        if which == "pushdown":
+            return chip_smoke.pushdown_plans(T, fact_t, dim_t)[0][0]
+        if which == "groupby_hi":
+            return chip_smoke.groupby_hi_plan(T, hi_t)
+        if which == "groupby_few":
+            return chip_smoke.groupby_few_plan(T, few_t)
         return chip_smoke.dup8_plan(T, fact_t, dim_t, T.JoinType.INNER, False)
 
     print(f"plan: {which}")

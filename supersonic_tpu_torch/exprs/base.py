@@ -2,10 +2,9 @@
 
 Port of ``supersonic_tpu/exprs/base.py`` (reference: expression/base/
 expression.h:42-158).  A bound expression is a function over (values,
-valid) tensor pairs.  Only what the headline
-predicate needs is ported: column references, constants and the six
-comparisons; the other operators raise ``NotImplementedError`` (ROADMAP.md
-queue 1 items 4 and 14).
+valid) tensor pairs.  Ported so far: column references, constants,
+``Sequence`` and ``Null``, the comparisons, arithmetic, logic, ``IsNull``
+and ``IfNull``; the rest of the engine is ROADMAP.md queue 1 item 14.
 """
 from __future__ import annotations
 
@@ -26,6 +25,12 @@ class ExprValue(NamedTuple):
     values: torch.Tensor
     valid: Optional[torch.Tensor]  # None => non-nullable / all valid
 
+    def valid_or_true(self) -> torch.Tensor:
+        if self.valid is None:
+            return torch.ones(self.values.shape[0], dtype=torch.bool,
+                              device=self.values.device)
+        return self.valid
+
 
 class EvaluationError(Exception):
     """Raised at the host sync when a device error flag is set (reference:
@@ -39,6 +44,11 @@ class EvalContext:
     table: Table
     # (flag name, 0-d bool device tensor) pairs, read back by execute()
     error_flags: list = field(default_factory=list)
+
+    def flag_error(self, name: str, per_row_flag: torch.Tensor) -> None:
+        """Raise ``name`` at the host sync if a live row sets the flag."""
+        live = per_row_flag & self.table.row_mask()
+        self.error_flags.append((name, live.any()))
 
 
 class BoundExpression:
@@ -68,12 +78,6 @@ class BoundExpression:
         return self._fn(ctx)
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1 item 14: full "
-        "expression engine)")
-
-
 class Expression:
     """Symbolic expression node; ``bind`` resolves types against a schema."""
 
@@ -87,22 +91,25 @@ class Expression:
     def as_(self, name: str) -> "Expression":
         return Alias(name, self)
 
-    # -- sugar: comparisons are ported, the rest is not yet ------------------
-    def __lt__(self, other):  from .comparison import Less; return Less(self, wrap(other))
-    def __le__(self, other):  from .comparison import LessOrEqual; return LessOrEqual(self, wrap(other))
-    def __gt__(self, other):  from .comparison import Greater; return Greater(self, wrap(other))
-    def __ge__(self, other):  from .comparison import GreaterOrEqual; return GreaterOrEqual(self, wrap(other))
-    def eq(self, other):      from .comparison import Equal; return Equal(self, wrap(other))
-    def ne(self, other):      from .comparison import NotEqual; return NotEqual(self, wrap(other))
-
-    def __add__(self, other): _not_ported("arithmetic")
-    __radd__ = __sub__ = __rsub__ = __mul__ = __rmul__ = __add__
-    __truediv__ = __mod__ = __add__
-
-    def __neg__(self): _not_ported("arithmetic")
-    def __and__(self, other): _not_ported("logic")
-    __or__ = __and__
-    def __invert__(self): _not_ported("logic")
+    # -- sugar ----------------------------------------------------------------
+    def __add__(self, other):  from .arithmetic import Plus; return Plus(self, wrap(other))
+    def __radd__(self, other): from .arithmetic import Plus; return Plus(wrap(other), self)
+    def __sub__(self, other):  from .arithmetic import Minus; return Minus(self, wrap(other))
+    def __rsub__(self, other): from .arithmetic import Minus; return Minus(wrap(other), self)
+    def __mul__(self, other):  from .arithmetic import Multiply; return Multiply(self, wrap(other))
+    def __rmul__(self, other): from .arithmetic import Multiply; return Multiply(wrap(other), self)
+    def __truediv__(self, other): from .arithmetic import DivideSignaling; return DivideSignaling(self, wrap(other))
+    def __mod__(self, other):  from .arithmetic import ModulusSignaling; return ModulusSignaling(self, wrap(other))
+    def __neg__(self):         from .arithmetic import Negate; return Negate(self)
+    def __lt__(self, other):   from .comparison import Less; return Less(self, wrap(other))
+    def __le__(self, other):   from .comparison import LessOrEqual; return LessOrEqual(self, wrap(other))
+    def __gt__(self, other):   from .comparison import Greater; return Greater(self, wrap(other))
+    def __ge__(self, other):   from .comparison import GreaterOrEqual; return GreaterOrEqual(self, wrap(other))
+    def __and__(self, other):  from .logic import And; return And(self, wrap(other))
+    def __or__(self, other):   from .logic import Or; return Or(self, wrap(other))
+    def __invert__(self):      from .logic import Not; return Not(self)
+    def eq(self, other):       from .comparison import Equal; return Equal(self, wrap(other))
+    def ne(self, other):       from .comparison import NotEqual; return NotEqual(self, wrap(other))
 
 
 def wrap(value) -> Expression:

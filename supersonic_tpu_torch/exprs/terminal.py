@@ -1,12 +1,14 @@
-"""Terminal expressions: typed constants.
+"""Terminal expressions: typed constants, ``Null`` and ``Sequence``.
 
-Port of the ``Const`` part of ``supersonic_tpu/exprs/terminal.py``
-(reference: expression/infrastructure/terminal_expressions.h:36-71).
+Port of ``Const``, ``Null`` and ``Sequence`` from
+``supersonic_tpu/exprs/terminal.py`` (reference: expression/infrastructure/
+terminal_expressions.h:36-71).
 """
 from __future__ import annotations
 
 import torch
 
+from ..dictionary import Dictionary
 from ..schema import Attribute
 from ..types import (DataType, check_column_type,
                      is_variable_length, torch_dtype)
@@ -59,3 +61,39 @@ def ConstBool(v):   return Const(v, DataType.BOOL)
 def TypedConst(type_: DataType, value):
     """reference: terminal_expressions.h TypedConst<type>(value)."""
     return Const(value, type_)
+
+
+class Null(Expression):
+    """Typed all-NULL column (reference: terminal_expressions.h Null)."""
+
+    def __init__(self, type_: DataType):
+        self.type_ = type_
+
+    def do_bind(self, schema, dicts):
+        t = self.type_
+        dtype = torch_dtype(t)
+
+        def fn(ctx: EvalContext) -> ExprValue:
+            table = ctx.table
+            return ExprValue(
+                torch.zeros(table.capacity, dtype=dtype, device=table.device),
+                torch.zeros(table.capacity, dtype=torch.bool,
+                            device=table.device))
+
+        dictionary = Dictionary(()) if is_variable_length(t) else None
+        return BoundExpression(Attribute("NULL", t, nullable=True), fn,
+                               dictionary)
+
+
+class Sequence(Expression):
+    """0, 1, 2, ... per row, over the whole capacity (reference:
+    terminal_expressions.h:58)."""
+
+    def do_bind(self, schema, dicts):
+        def fn(ctx: EvalContext) -> ExprValue:
+            table = ctx.table
+            return ExprValue(torch.arange(table.capacity, dtype=torch.int64,
+                                          device=table.device), None)
+
+        return BoundExpression(Attribute("SEQUENCE", DataType.INT64, False),
+                               fn)

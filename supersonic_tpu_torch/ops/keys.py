@@ -1,6 +1,7 @@
 """Sortable/groupable key encoding.
 
-Port of ``monotone_code``, ``descending_code`` and ``key_operands`` from
+Port of ``monotone_code``, ``descending_code``, ``key_operands``,
+``group_code_columns`` and ``_check_keyable`` from
 ``supersonic_tpu/ops/keys.py``: every key column maps to a code whose
 order equals the reference comparator's order on the values (sort.cc:
 150-161), so a multi-key sort is a series of stable sorts over codes.
@@ -12,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from ..dictionary import DeferredDictionary
+from ..schema import SchemaError
 from ..types import DataType
 
 
@@ -41,6 +44,7 @@ def key_lanes(table, names, ascendings) -> list:
     emitted only for nullable columns, and the code is zeroed under NULL."""
     lanes = []
     for name, asc in zip(names, ascendings):
+        _check_keyable(table, name)
         c = table.columns[name]
         code = monotone_code(c.values, table.schema.lookup(name).type)
         if not asc:
@@ -58,3 +62,32 @@ def key_operands(table, names, ascendings, pad_mask=None) -> list:
     if pad_mask is None:
         pad_mask = ~table.row_mask()
     return [pad_mask.to(torch.int32)] + key_lanes(table, names, ascendings)
+
+
+def _check_keyable(table, name: str) -> None:
+    """Sort/group/join keys need order-preserving (or at least value-unique)
+    codes; a CONCAT result's deferred dictionary is neither (its codes are
+    group ids assigned before the strings exist)."""
+    if isinstance(table.dicts.get(name), DeferredDictionary):
+        raise SchemaError(
+            f"column {name!r} holds a runtime-resolved CONCAT result; it "
+            "cannot be used as a sort/group/join key (codes are not "
+            "order-preserving). Materialize the result first.")
+
+
+def group_code_columns(table, names) -> list:
+    """Per key ``(null_rank or None, code)`` for equality-based grouping:
+    equal pairs are the reference's key equality (NULL == NULL, -0.0 ==
+    +0.0).  The null rank (1 valid, 0 NULL) is None for a non-nullable
+    column, and the code is zeroed under NULL."""
+    pairs = []
+    for name in names:
+        _check_keyable(table, name)
+        c = table.columns[name]
+        code = monotone_code(c.values, table.schema.lookup(name).type)
+        if c.valid is None:
+            pairs.append((None, code))
+        else:
+            pairs.append((c.valid.to(torch.int32),
+                          torch.where(c.valid, code, torch.zeros_like(code))))
+    return pairs

@@ -5,7 +5,9 @@ package's ``read_reference_file`` and moved into the port's tables with
 by tests/test_golden.py's rule (ordered, every value and NULL exact).
 
 The golden cases that need features the port does not have yet are listed
-in ROADMAP.md (queue 1 item 10)."""
+in ROADMAP.md (queue 1 item 10).  The group-by cases compare ordered by
+their key, as tests/test_golden.py does (the row order of a hash group-by
+is the engine's)."""
 from __future__ import annotations
 
 import pathlib
@@ -101,10 +103,13 @@ def _host_columns(table):
     return vals, valids
 
 
-def assert_tables_match(actual, golden):
-    """tests/test_golden.py:120-160's ordered comparison: positional
-    columns, the reference's types and nullability, NULL masks and values
-    exact."""
+def assert_tables_match(actual, golden, sort_by=None, float_rtol=0.0):
+    """tests/test_golden.py:120-160's comparison: positional columns, the
+    reference's types and nullability, NULL masks and values exact.
+    ``sort_by``: positions of exactly typed columns forming a unique row
+    key, by which both sides are ordered first (for a group-by, whose row
+    order is the engine's); ``float_rtol`` > 0 allows that relative error
+    on FLOAT/DOUBLE values (summation order)."""
     assert len(actual.schema) == len(golden.schema)
     assert int(actual.num_rows) == int(golden.num_rows)
     for an, gn in zip(actual.schema, golden.schema):
@@ -114,12 +119,27 @@ def assert_tables_match(actual, golden):
             f"column {an.name}: nullable {an.nullable} != {gn.nullable}"
     a_vals, a_ok = _host_columns(actual)
     g_vals, g_ok = _host_columns(golden)
+    if sort_by is None:
+        ap = gp = np.arange(int(actual.num_rows))
+    else:
+        for i in sort_by:
+            assert a_ok[i].all() and g_ok[i].all(), "sort_by column has NULLs"
+        ap = np.lexsort([a_vals[i] for i in reversed(sort_by)])
+        gp = np.lexsort([g_vals[i] for i in reversed(sort_by)])
     for i, name in enumerate(golden.schema.names()):
+        am, gm = a_ok[i][ap], g_ok[i][gp]
         np.testing.assert_array_equal(
-            a_ok[i], g_ok[i], err_msg=f"null mask mismatch in column {name}")
-        np.testing.assert_array_equal(
-            a_vals[i][a_ok[i]], g_vals[i][g_ok[i]],
-            err_msg=f"value mismatch in column {name}")
+            am, gm, err_msg=f"null mask mismatch in column {name}")
+        av, gv = a_vals[i][ap][am], g_vals[i][gp][gm]
+        if float_rtol > 0 and golden.schema.attribute(i).type.value in (
+                "FLOAT", "DOUBLE"):
+            np.testing.assert_allclose(
+                av.astype(np.float64), gv.astype(np.float64),
+                rtol=float_rtol, atol=0.0,
+                err_msg=f"value mismatch in column {name}")
+        else:
+            np.testing.assert_array_equal(
+                av, gv, err_msg=f"value mismatch in column {name}")
 
 
 def test_golden_guide_sort():
@@ -166,3 +186,39 @@ def test_golden_inputs_survive_the_move_into_the_port():
             jt = read_reference_file(_schema(J, cols), str(GOLDEN / f))
             assert t.to_pylist() == jt.to_pylist()
             assert t.schema.lookup("col1").type == T.STRING
+
+
+def test_golden_primer_sum():
+    """A DOUBLE SUM by an INT32 key: the sort path (64-bit input)."""
+    (t,) = _inputs("primer_sum")
+    out = T.execute(T.GroupAggregate(
+        ["key"], [T.AggSpec(T.Aggregation.SUM, "data", "data_sums")],
+        T.ScanTable(t)))
+    # DOUBLE SUM: the accumulation order differs from the row-serial C++
+    assert_tables_match(out, _golden_out("primer_sum"), sort_by=[0],
+                        float_rtol=1e-12)
+
+
+def test_golden_guide_agg():
+    """SUM, MIN, MAX and COUNT of INT32 by a STRING key: dense by the
+    dictionary; INT32 SUM wraps exactly, so every value is exact."""
+    (t,) = _inputs("guide_agg")
+    A = T.Aggregation
+    out = T.execute(T.GroupAggregate(
+        ["department"],
+        [T.AggSpec(A.SUM, "salary", "salary_sum"),
+         T.AggSpec(A.MIN, "age", "age_min"),
+         T.AggSpec(A.MAX, "age", "age_max"),
+         T.AggSpec(A.COUNT, "age", "age_cnt")],
+        T.ScanTable(t)))
+    assert_tables_match(out, _golden_out("guide_agg"), sort_by=[0])
+
+
+def test_golden_bench_group():
+    """MAX of INT32 by a STRING key of 50 values: dense by the
+    dictionary."""
+    (t,) = _inputs("bench_group")
+    out = T.execute(T.GroupAggregate(
+        ["col0"], [T.AggSpec(T.Aggregation.MAX, "col1", "col1_maxes")],
+        T.ScanTable(t)))
+    assert_tables_match(out, _golden_out("bench_group"), sort_by=[0])

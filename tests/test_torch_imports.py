@@ -21,7 +21,12 @@ def test_import_leaves_jax_out():
         "supersonic_tpu_torch.kernels.segment_reduce, "
         "supersonic_tpu_torch.kernels.spread, "
         "supersonic_tpu_torch.kernels.merge_sorted, "
-        "supersonic_tpu_torch.ops.merge, supersonic_tpu_torch.ops.union; "
+        "supersonic_tpu_torch.ops.merge, supersonic_tpu_torch.ops.union, "
+        "supersonic_tpu_torch.ops.compute, supersonic_tpu_torch.ops.aggregate, "
+        "supersonic_tpu_torch.exprs.arithmetic, "
+        "supersonic_tpu_torch.exprs.logic, "
+        "supersonic_tpu_torch.exprs.elementary, "
+        "supersonic_tpu_torch.exprs.terminal; "
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'supersonic_tpu' "
         "or m.startswith('supersonic_tpu.')); "

@@ -271,11 +271,15 @@ def test_dense_aggregate_float_nans_and_signed_zeros_match_jax():
                             T.ScanTable(t), T.ScanTable(d),
                             rhs_projector=T.Projector.named("g"),
                             allow_dense_lookup=False),
+    # the sort path and the widened dense path are ported; their item 12
+    # options (max_unique_keys_in_result, DISTINCT) are not
     lambda t, d: T.GroupAggregate(["pk"], [T.AggSpec(T.Aggregation.COUNT,
                                                      None, "c")],
-                                  T.ScanTable(d)),
+                                  T.ScanTable(d), T.GroupAggregateOptions(
+                                      max_unique_keys_in_result=100)),
     lambda t, d: T.GroupAggregate(["g"], [T.AggSpec(T.Aggregation.SUM, "v",
-                                                    "s", T.DOUBLE)],
+                                                    "s", T.DOUBLE,
+                                                    distinct=True)],
                                   T.ScanTable(d)),
 ], ids=["left_outer", "not_unique", "non_dense_group_by", "sum_widening"])
 def test_outside_the_slice_raises_not_implemented(make):

@@ -107,3 +107,42 @@ def torch_raised(plan, leaves):
     run, _, _ = compile_plan(plan)
     _, flags, names = run(leaves)
     return {n for n, f in zip(names, flags.tolist()) if f}
+
+
+def tables(J, T, cols, arrays, dicts=None, capacity=None):
+    """(JAX table, port table on the CPU) of the same numpy columns:
+    ``arrays[name]`` is a value array or a ``(values, valid)`` pair;
+    a STRING/BINARY column gives int32 codes and ``dicts[name]`` the sorted
+    tuple of its values."""
+    values, valids = {}, {}
+    for name, raw in arrays.items():
+        values[name], valids[name] = (raw if isinstance(raw, tuple)
+                                      else (raw, None))
+    n = len(next(iter(values.values())))
+    dicts = dicts or {}
+    jt = J.Table.from_arrays(schema(J, cols), values, valids, n,
+                             {k: J.Dictionary(tuple(v))
+                              for k, v in dicts.items()}, capacity)
+    tt = T.Table.from_numpy(schema(T, cols), arrays, capacity,
+                            {k: T.Dictionary(tuple(v))
+                             for k, v in dicts.items()}, device="cpu")
+    return jt, tt
+
+
+def computed_plan(ns, t):
+    """Compute, arithmetic and logic over the columns a (INT32, nullable),
+    b (INT64), c (INT32), x (FLOAT) and y (DOUBLE, nullable), then a Filter
+    on ``(a > 3) & ~(y < 0)``: the same plan in either package."""
+    col, C, D = ns.col, ns.Const, ns.DataType
+    exprs = [col("a"), col("y"),
+             (col("a") * 3 - col("b")).as_("ab"),
+             (col("x") + col("a")).as_("xa"),
+             (col("y") / (col("c") * col("c") + C(1))).as_("yc"),
+             ns.CppDivideNulling(col("b"), col("a")).as_("ba"),
+             ns.ModulusNulling(col("a"), C(7)).as_("am"),
+             (-col("y")).as_("ny"),
+             ns.IfNull(col("y"), C(0.5, D.DOUBLE)).as_("y0"),
+             ns.IsNull(col("y")).as_("yn"),
+             ns.Sequence().as_("seq")]
+    return ns.Filter((col("a") > C(3)) & ~(col("y") < C(0.0, D.DOUBLE)),
+                     ns.Compute(exprs, ns.ScanTable(t)))
