@@ -6,9 +6,10 @@ query (BASELINE.json configs 4/5: FK build 1M x probe 100M, 64 groups)
 under both of its bindings, the multi-match join of bench_ops.py:188-206
 ("join NOT_UNIQUE dup8") scaled to emit 100M rows (dim 1M rows, 8 per
 key; fact 12.5M rows), the sorted merge of bench_ops.py:281-299
-("merge_union 2x4M") scaled to 2 x 50M rows, and bench_ops.py's two
+("merge_union 2x4M") scaled to 2 x 50M rows, bench_ops.py's two
 group-bys ("groupby 8M->1M keys", "groupby_str 8M->50") and a DOUBLE
-SUM into 64 groups (TPC-H Q1's shape) at 100M rows:
+SUM into 64 groups (TPC-H Q1's shape) at 100M rows, and the joins that
+take the merge probe, STRING keys and the outer join types:
 
   1. environment: torch version, the card, nvidia-smi's name and power limit
   2. build: compiles the CUDA kernels from csrc/ (one nvcc per source, all
@@ -60,11 +61,18 @@ SUM into 64 groups (TPC-H Q1's shape) at 100M rows:
      8M->50" at 100M rows (dense by the dictionary, one segment-reduce
      launch); (i) the headline through the aggregate pushdown binding,
      under its Sort and in insertion order, row for row against the
-     direct binding.  Each is checked against numpy.  Then (e)'s three
-     fold steps, each timed with its bound and its launches
+     direct binding; then four more joins: (k) bench_ops.py:153-160's
+     "join 8M x 1M (merge probe)" over the headline tables, 100M rows;
+     (l) the dup8 (a) join over INT64 keys spread past every dense budget
+     (the merge probe, 100M rows); (m) bench_ops.py:260-278's "join_str
+     8M x 1M" at 100M x 1M, whose build side holds a quarter of its
+     values in a dictionary of its own; (n) RIGHT_OUTER and FULL_OUTER
+     NOT_UNIQUE of dup8 (b)'s tables (about 50M and 56.25M rows).  Each
+     is checked against numpy.  Then (e)'s three fold steps, each timed
+     with its bound and its launches
   5. the median times of the headline query (under both bindings, and
      its aggregate in insertion order under both), of join (a), of merges
-     (d) and (e) and of group-bys (g), (h) and (j)
+     (d) and (e), of group-bys (g), (h) and (j) and of joins (k)-(n)
 
 It prints one JSON line of per-kernel results, then as its last line
 ``{"ok": true, "device": {...}}``.  It exits non-zero, and prints no
@@ -334,7 +342,8 @@ def check_compaction(torch, fk, v, keep):
     g = torch.Generator(device="cuda").manual_seed(8)
     shapes = [("Filter", n, 2, None), ("unmasked UNIQUE join", n, 3, None),
               ("(a) lhs rows that emit", DUP_FACT_ROWS, 3, 1.0),
-              ("(b) lhs rows that emit", DUP_FACT_ROWS, 4, 0.5)]
+              ("(b) lhs rows that emit", DUP_FACT_ROWS, 4, 0.5),
+              ("(k) run starts, live build rows", n, 1, 0.01)]
     per_call = []
     distinct = [fk, v, fk ^ 1, v * 2]
     for name, rows, lanes, share in shapes:
@@ -389,6 +398,10 @@ def check_lut_gather(torch, fk, dim_g):
         ("32 lanes", [dim_g] * 32, idx[:3_000_001], K, False),
         ("staged", small, sidx, small_k, False),
         ("staged, one lane", small[:1], sidx[3:], small_k, True),
+        # the merge probe: the build flags at the sorted row ids (one
+        # 1-byte lane), a run's start read back by its (sorted) run id
+        ("merge probe: build flags", [flag], idx, K, False),
+        ("merge probe: run starts", [start], torch.sort(idx)[0], K, True),
     ]
     err = 0.0
     for name, luts, ix, k, spec in cases:
@@ -406,10 +419,10 @@ def check_lut_gather(torch, fk, dim_g):
                 lambda: lut_gather_ref([dim_g], fk, K),
                 lambda: torch.index_select(dim_g, 0, fk),
                 n * 4 + K * 4 + n * 4)
-    log(f"kernel lut_gather: bit-exact on 10 cases (n={n}, K={K}; "
+    log(f"kernel lut_gather: bit-exact on 12 cases (n={n}, K={K}; "
         f"specialised: one, two and three 4-byte lanes, with a 1-byte flag, "
-        f"an odd-offset slice; generic: 8-byte lanes, 32 lanes; staged); "
-        f"{t}")
+        f"an odd-offset slice, sorted indices; generic: 8-byte lanes, 32 "
+        f"lanes, a lone 1-byte lane; staged); {t}")
     return {"max_abs_err": err, **t}
 
 
@@ -1529,6 +1542,231 @@ def check_pushdown(out, direct, ordered):
     return len(got)
 
 
+# --- joins (k)-(n): the merge probe, sparse 64-bit and STRING keys, and the
+# outer joins ---------------------------------------------------------------
+
+STR_PRESENT = 750_000          # path (m): probe values the build side holds
+STR_ABSENT = 250_000           # ... and build values the probe never holds
+
+
+def merge_probe_plan(T, fact_t, dim_t):
+    """Path (k): bench_ops.py:153-160's "join 8M x 1M (merge probe)" over
+    the headline tables: INNER UNIQUE fk = pk without dense lookups."""
+    return T.HashJoin(T.JoinType.INNER, ["fk"], ["pk"], T.ScanTable(fact_t),
+                      T.ScanTable(dim_t), T.KeyUniqueness.UNIQUE,
+                      lhs_projector=T.Projector.named("v"),
+                      rhs_projector=T.Projector.named("g"),
+                      allow_dense_lookup=False)
+
+
+def check_merge_probe(torch, out, fact, dim):
+    """Path (k): every fact row matches (fk < DIM_ROWS), in fact order: v
+    as it is, g of dim row fk, bit for bit."""
+    assert int(out.num_rows) == FACT_ROWS, "(k): row count"
+    dev = out.columns["v"].values.device
+    for col, want in (("v", fact["v"]), ("g", dim["g"][fact["fk"]])):
+        got = out.columns[col].values[:FACT_ROWS]
+        assert torch.equal(bits(got), bits(torch.from_numpy(want).to(dev))), \
+            f"(k): column {col}"
+
+
+def sparse_key(k):
+    """Path (l): INT64 key (k * 0x9E3779B97F4A7C15) mod 2^62, in uint64
+    arithmetic; the multiplier is odd, so distinct keys stay distinct."""
+    h = k.astype(np.uint64) * np.uint64(0x9E3779B97F4A7C15)
+    return (h & np.uint64((1 << 62) - 1)).astype(np.int64)
+
+
+def sparse64_tables(T, dfact, ddim, dev):
+    """Path (l): the dup8 (a) tables with each key mapped by
+    ``sparse_key``: their range passes every dense budget."""
+    fs = T.TupleSchema.of(("fk", T.INT64, False), ("v", T.FLOAT, False))
+    ds = T.TupleSchema.of(("pk", T.INT64, False), ("w", T.INT32, False))
+    return (T.Table.from_numpy(fs, dict(dfact, fk=sparse_key(dfact["fk"])),
+                               device=dev),
+            T.Table.from_numpy(ds, dict(ddim, pk=sparse_key(ddim["pk"])),
+                               device=dev))
+
+
+def sparse64_plan(T, fact_t, dim_t):
+    """Path (l): the dup8 NOT_UNIQUE INNER join over the sparse keys."""
+    return T.HashJoin(T.JoinType.INNER, ["fk"], ["pk"], T.ScanTable(fact_t),
+                      T.ScanTable(dim_t), T.KeyUniqueness.NOT_UNIQUE,
+                      lhs_projector=T.Projector.named("v"),
+                      rhs_projector=T.Projector.named("w"),
+                      out_capacity=DUP_OUT)
+
+
+def join_str_tables(T, fact, dev):
+    """Path (m): bench_ops.py:260-278's "join_str 8M x 1M" at 100M x 1M.
+    The probe holds the headline fk as codes into a dictionary of the
+    DIM_ROWS values key_0000000.., the build side 1M rows (a permutation,
+    default_rng(5)): STR_PRESENT of those values and STR_ABSENT values
+    key_1000000.. the probe never holds, in a dictionary of its own, with
+    w in [0, 64).  Returns (fact table, dim table, w of each probe value's
+    build row or -1)."""
+    rng = np.random.default_rng(5)
+    present = rng.permutation(DIM_ROWS)[:STR_PRESENT]
+    vids = np.concatenate([present, DIM_ROWS + np.arange(STR_ABSENT)])
+    vids = vids[rng.permutation(vids.shape[0])]
+    w = rng.integers(0, 64, vids.shape[0]).astype(np.int32)
+    svids = np.sort(vids)
+    probe_dict = T.Dictionary(tuple(f"key_{i:07d}" for i in range(DIM_ROWS)))
+    build_dict = T.Dictionary(tuple(f"key_{i:07d}" for i in svids))
+    fact_t = T.Table.from_numpy(
+        T.TupleSchema.of(("fk", T.STRING, False), ("v", T.FLOAT, False)),
+        fact, None, {"fk": probe_dict}, device=dev)
+    dim_t = T.Table.from_numpy(
+        T.TupleSchema.of(("pk", T.STRING, False), ("w", T.INT32, False)),
+        {"pk": np.searchsorted(svids, vids).astype(np.int32), "w": w}, None,
+        {"pk": build_dict}, device=dev)
+    w_of = np.full(DIM_ROWS, -1, dtype=np.int64)
+    inside = vids < DIM_ROWS
+    w_of[vids[inside]] = w[inside]
+    return fact_t, dim_t, w_of
+
+
+def join_str_plan(T, fact_t, dim_t):
+    """Path (m): INNER UNIQUE fk = pk over STRING keys, lhs v, rhs w."""
+    return T.HashJoin(T.JoinType.INNER, ["fk"], ["pk"], T.ScanTable(fact_t),
+                      T.ScanTable(dim_t), T.KeyUniqueness.UNIQUE,
+                      lhs_projector=T.Projector.named("v"),
+                      rhs_projector=T.Projector.named("w"))
+
+
+def check_join_str(torch, out, fact, w_of):
+    """Path (m): the fact rows whose value the build side holds, in fact
+    order, v as it is and w of that build row.  Returns the row count."""
+    hit_w = w_of[fact["fk"]]
+    keep = hit_w >= 0
+    n = int(keep.sum())
+    assert int(out.num_rows) == n, "(m): row count"
+    dev = out.columns["v"].values.device
+    for col, want in (("v", fact["v"][keep]),
+                      ("w", hit_w[keep].astype(np.int32))):
+        got = out.columns[col].values[:n]
+        assert torch.equal(bits(got), bits(torch.from_numpy(want).to(dev))), \
+            f"(m): column {col}"
+    return n
+
+
+def outer_rows(fk, pk):
+    """Path (n)'s row counts: (RIGHT_OUTER, FULL_OUTER) of fact keys ``fk``
+    against dim keys ``pk`` (pk = row // 8)."""
+    per_key = np.bincount(fk, minlength=DUP_KEYS)[:DUP_KEYS]
+    right = int(np.maximum(per_key[pk], 1).sum())
+    hit = fk < DUP_KEYS
+    full = int(np.where(hit, 8, 1).sum()) + int((per_key[pk] == 0).sum())
+    return right, full
+
+
+def outer_plan(T, fact_t, dim_t, join_type, out_cap):
+    """Path (n): dup8 (b)'s tables (fk over twice the dim's keys), without
+    the Filter, NOT_UNIQUE, every column projected."""
+    return T.HashJoin(join_type, ["fk"], ["pk"], T.ScanTable(fact_t),
+                      T.ScanTable(dim_t), T.KeyUniqueness.NOT_UNIQUE,
+                      out_capacity=out_cap)
+
+
+def check_right_outer(torch, out, fk, v, dim):
+    """Path (n) RIGHT_OUTER: for each dim row in order, the fact rows of its
+    key in fact order, or one row with NULL fk and v.  Returns (rows, rows
+    without a fact row)."""
+    pk = dim["pk"]
+    order = np.argsort(fk, kind="stable")
+    per_key = np.bincount(fk, minlength=DUP_KEYS)[:DUP_KEYS]
+    starts = np.concatenate([[0], np.cumsum(np.bincount(fk))])[:DUP_KEYS]
+    cnt = per_key[pk]
+    eff = np.maximum(cnt, 1)
+    n = int(eff.sum())
+    assert int(out.num_rows) == n, "(n) RIGHT_OUTER: row count"
+    first = np.repeat(np.cumsum(eff) - eff, eff)
+    j = np.arange(n) - first
+    hit = np.repeat(cnt > 0, eff)
+    src = order[np.where(hit, np.repeat(starts[pk], eff) + j, 0)]
+    dev = out.columns["v"].values.device
+    want = {"fk": (np.where(hit, fk[src], 0).astype(np.int32), hit),
+            "v": (np.where(hit, v[src], 0).astype(np.float32), hit),
+            "pk": (np.repeat(pk, eff), None),
+            "w": (np.repeat(dim["w"], eff), None)}
+    for col, (vals, valid) in want.items():
+        c = out.columns[col]
+        got = c.values[:n]
+        if valid is not None:
+            ok = torch.from_numpy(valid).to(dev)
+            assert torch.equal(c.valid[:n], ok), f"(n) RIGHT_OUTER: NULLs {col}"
+            got = torch.where(ok, got, torch.zeros_like(got))
+        assert torch.equal(bits(got), bits(torch.from_numpy(vals).to(dev))), \
+            f"(n) RIGHT_OUTER: column {col}"
+    return n, int((cnt == 0).sum())
+
+
+def row_words(torch, cols, n):
+    """Path (n) FULL_OUTER's rows as two int64 words each, sorted: (fk + 1)
+    << 32 | bits of v and (pk + 1) << 32 | w, 0 for a NULL column pair;
+    sorted by the first word, then the second (stable passes)."""
+    def word(key, val):
+        kv, kok = key
+        vv, vok = val
+        w = ((kv.long() + 1) << 32) | (bits(vv).long() & 0xFFFFFFFF)
+        if kok is not None:
+            w = torch.where(kok, w, 0)
+        return w
+    a = word(cols["fk"], cols["v"])[:n]
+    b = word(cols["pk"], cols["w"])[:n]
+    o = torch.sort(b, stable=True)[1]
+    o = o[torch.sort(a[o], stable=True)[1]]
+    return a[o], b[o]
+
+
+def check_full_outer(torch, out, fk, v, dim):
+    """Path (n) FULL_OUTER as a multiset of rows against numpy: each fact
+    row with its key's 8 dim rows, or with NULL pk and w past the dim's
+    keys, then each dim row whose key no fact row holds, with NULL fk and
+    v.  Returns (rows, NULL-padded dim rows)."""
+    dev = out.columns["v"].values.device
+    hit = fk < DUP_KEYS
+    eff = np.where(hit, 8, 1)
+    rows_l = int(eff.sum())
+    first = np.repeat(np.cumsum(eff) - eff, eff)
+    j = np.arange(rows_l) - first
+    lhit = np.repeat(hit, eff)
+    drow = np.where(lhit, np.repeat(8 * fk.astype(np.int64), eff) + j, 0)
+    anti = np.nonzero(np.bincount(fk, minlength=DUP_KEYS)[:DUP_KEYS]
+                      [dim["pk"]] == 0)[0]
+    n = rows_l + anti.shape[0]
+    assert int(out.num_rows) == n, "(n) FULL_OUTER: row count"
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    ones_l = np.ones(rows_l, dtype=bool)
+    want = {
+        "fk": (t(np.concatenate([np.repeat(fk, eff),
+                                 np.zeros(anti.shape[0], np.int32)])),
+               t(np.concatenate([ones_l, np.zeros(anti.shape[0], bool)]))),
+        "v": (t(np.concatenate([np.repeat(v, eff),
+                                np.zeros(anti.shape[0], np.float32)])),
+              None),
+        "pk": (t(np.concatenate([np.where(lhit, dim["pk"][drow], 0),
+                                 dim["pk"][anti]]).astype(np.int32)),
+               t(np.concatenate([lhit, np.ones(anti.shape[0], bool)]))),
+        "w": (t(np.concatenate([np.where(lhit, dim["w"][drow], 0),
+                                dim["w"][anti]]).astype(np.int32)), None)}
+    got = {}
+    for col in ("fk", "v", "pk", "w"):
+        c = out.columns[col]
+        got[col] = (c.values[:n], None if c.valid is None else c.valid[:n])
+    # a row's lhs columns are NULL together, and so are its rhs columns
+    assert torch.equal(got["v"][1], got["fk"][1]), "(n) FULL_OUTER: v NULLs"
+    assert torch.equal(got["w"][1], got["pk"][1]), "(n) FULL_OUTER: w NULLs"
+    g_words, w_words = row_words(torch, got, n), row_words(torch, want, n)
+    assert (torch.equal(g_words[0], w_words[0])
+            and torch.equal(g_words[1], w_words[1])), \
+        "(n) FULL_OUTER: the rows differ as a multiset"
+    return n, anti.shape[0]
+
+
 def main():
     import torch
 
@@ -1599,12 +1837,15 @@ def main():
         must have launched."""
         torch.cuda.synchronize()
         kernels.reset_launches()
+        t0 = time.perf_counter()
         out = T.execute(plan)
         torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
         got = dict(kernels.launches)
         for k in got:
             total[k] += got[k]
-        log(f"main path launches, {label}: {got}")
+        log(f"main path launches, {label}: {got}; first run "
+            f"{first_ms:.1f} ms (host clock, bind included)")
         for k in needs:
             assert got[k] > 0, f"{label} did not launch {k}"
         return out
@@ -1737,6 +1978,41 @@ def main():
         f"in first-occurrence order, counts exact, sd within {DOUBLE_RTOL} "
         f"of its sum of |d|, sv rtol {SUM_RTOL}, a second run bit for bit")
 
+    out = drive("(k) merge-probe INNER UNIQUE join",
+                merge_probe_plan(T, fact_t, dim_t),
+                ("compaction", "lut_gather"))
+    check_merge_probe(torch, out, fact, dim)
+    del out
+    sp_fact_t, sp_dim_t = sparse64_tables(T, dfact, ddim, dev)
+    out = drive("(l) sparse INT64 NOT_UNIQUE join, merge probe",
+                sparse64_plan(T, sp_fact_t, sp_dim_t),
+                ("compaction", "spread", "lut_gather"))
+    check_dup8_inner(torch, out, dfact, ddim)
+    del out
+    str_fact_t, str_dim_t, w_of = join_str_tables(T, fact, dev)
+    out = drive("(m) STRING-key INNER UNIQUE join",
+                join_str_plan(T, str_fact_t, str_dim_t),
+                ("compaction", "lut_gather"))
+    n_m = check_join_str(torch, out, fact, w_of)
+    del out, w_of
+    right_cap, full_cap = outer_rows(fk_half, ddim["pk"])
+    out = drive("(n) RIGHT_OUTER NOT_UNIQUE join", outer_plan(
+        T, dhalf_t, ddim_t, T.JoinType.RIGHT_OUTER, right_cap),
+        ("compaction", "spread", "lut_gather"))
+    n_r = check_right_outer(torch, out, fk_half, dfact["v"], ddim)
+    del out
+    out = drive("(n) FULL_OUTER NOT_UNIQUE join", outer_plan(
+        T, dhalf_t, ddim_t, T.JoinType.FULL_OUTER, full_cap),
+        ("compaction", "spread", "lut_gather"))
+    n_f = check_full_outer(torch, out, fk_half, dfact["v"], ddim)
+    del out
+    log(f"joins (k)-(n) match numpy: (k) {FACT_ROWS} rows in order; (l) "
+        f"{DUP_OUT} rows in order; (m) {n_m} rows in order "
+        f"({FACT_ROWS - n_m} probe rows without a build row); (n) "
+        f"RIGHT_OUTER {n_r[0]} rows in (dim row, fact order), {n_r[1]} dim "
+        f"rows without a fact row; FULL_OUTER {n_f[0]} rows as a multiset, "
+        f"{n_f[1]} NULL-padded dim rows")
+
     # 5. times, host clock around execute (which ends in a sync)
     def median_ms(plan_fn, label, size):
         times = []
@@ -1767,6 +2043,21 @@ def main():
     median_ms(lambda: groupby_few_plan(T, few_t),
               "(j) sort-path group-by under a Filter",
               f"{FACT_ROWS} -> {FEW_GROUPS} INT64 keys")
+    median_ms(lambda: merge_probe_plan(T, fact_t, dim_t),
+              "(k) merge-probe join", f"{FACT_ROWS} x {DIM_ROWS}")
+    median_ms(lambda: sparse64_plan(T, sp_fact_t, sp_dim_t),
+              "(l) sparse INT64 NOT_UNIQUE join",
+              f"{DUP_FACT_ROWS} x {DUP_DIM_ROWS} -> {DUP_OUT} rows")
+    median_ms(lambda: join_str_plan(T, str_fact_t, str_dim_t),
+              "(m) STRING-key join", f"{FACT_ROWS} x {DIM_ROWS}")
+    median_ms(lambda: outer_plan(T, dhalf_t, ddim_t, T.JoinType.RIGHT_OUTER,
+                                 right_cap),
+              "(n) RIGHT_OUTER join", f"{DUP_FACT_ROWS} x {DUP_DIM_ROWS} -> "
+              f"{right_cap} rows")
+    median_ms(lambda: outer_plan(T, dhalf_t, ddim_t, T.JoinType.FULL_OUTER,
+                                 full_cap),
+              "(n) FULL_OUTER join", f"{DUP_FACT_ROWS} x {DUP_DIM_ROWS} -> "
+              f"{full_cap} rows")
     for i, label in enumerate(("(i) headline query", "(i) headline aggregate "
                                "in insertion order")):
         for j, binding in enumerate(("pushdown", "direct")):

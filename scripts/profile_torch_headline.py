@@ -15,7 +15,12 @@ through the aggregate pushdown binding (chip_smoke.py's path (i), under
 its Sort); ``groupby_hi`` profiles chip_smoke.py's path (g), the
 sort-path group-by of the headline's 100M fact rows into 1M keys;
 ``groupby_few`` profiles its path (j), a DOUBLE SUM of those rows into 64
-INT64 keys under a fused Filter.  The
+INT64 keys under a fused Filter; ``merge_probe`` its path (k), the
+headline tables' INNER UNIQUE join through the merge probe; ``sparse64``
+its path (l), the dup8 join over 64-bit keys past every dense budget;
+``join_str`` its path (m), the STRING-key join of 100M probe rows against
+a 1M-row build side with a dictionary of its own; ``right_outer`` and
+``full_outer`` its path (n), those joins of dup8 (b)'s tables.  The
 plan runs twice to warm up, then five
 runs give the host-clock median (each ends in a sync), then three runs are
 profiled with torch.profiler.  Prints the card (nvidia-smi name and power
@@ -26,7 +31,8 @@ device memory above the inputs, and the table of ops and kernels by device
 time.
 
     python3 scripts/profile_torch_headline.py \
-        [headline|dup8|merge|e|pushdown|groupby_hi|groupby_few]
+        [headline|dup8|merge|e|pushdown|groupby_hi|groupby_few|merge_probe|
+         sparse64|join_str|right_outer|full_outer]
 """
 import pathlib
 import statistics
@@ -57,12 +63,17 @@ def main():
     print(f"card: {smi}")
     dev = torch.device("cuda", 0)
     which = sys.argv[1] if len(sys.argv) > 1 else "headline"
-    if which in ("headline", "pushdown", "groupby_hi", "groupby_few"):
+    if which in ("headline", "pushdown", "groupby_hi", "groupby_few",
+                 "merge_probe", "join_str"):
         fact, dim = chip_smoke.make_data()
         fs, ds = chip_smoke.schemas(T)
-    elif which == "dup8":
-        fact, dim, _ = chip_smoke.dup8_data()
+    elif which in ("dup8", "sparse64", "right_outer", "full_outer"):
+        fact, dim, fk_half = chip_smoke.dup8_data()
         fs, ds = chip_smoke.dup8_schemas(T)
+        if which in ("right_outer", "full_outer"):
+            out_cap = chip_smoke.outer_rows(fk_half, dim["pk"])[
+                which == "full_outer"]
+            fact = dict(fact, fk=fk_half)
     elif which == "merge":
         runs = chip_smoke.merge_tables(T, chip_smoke.merge_data(torch, dev),
                                        dev)
@@ -73,9 +84,14 @@ def main():
         torch.cuda.empty_cache()
     else:
         sys.exit(f"profile_torch_headline: unknown plan {which!r}")
-    if which in ("headline", "dup8", "pushdown"):
+    if which in ("headline", "dup8", "pushdown", "merge_probe",
+                 "right_outer", "full_outer"):
         fact_t = T.Table.from_numpy(fs, fact, device=dev)
         dim_t = T.Table.from_numpy(ds, dim, device=dev)
+    if which == "sparse64":
+        fact_t, dim_t = chip_smoke.sparse64_tables(T, fact, dim, dev)
+    if which == "join_str":
+        fact_t, dim_t, _ = chip_smoke.join_str_tables(T, fact, dev)
     if which == "groupby_hi":
         hi_t = chip_smoke.groupby_hi_tables(T, fact, dev)[0]
     if which == "groupby_few":
@@ -95,6 +111,17 @@ def main():
             return chip_smoke.groupby_hi_plan(T, hi_t)
         if which == "groupby_few":
             return chip_smoke.groupby_few_plan(T, few_t)
+        if which == "merge_probe":
+            return chip_smoke.merge_probe_plan(T, fact_t, dim_t)
+        if which == "sparse64":
+            return chip_smoke.sparse64_plan(T, fact_t, dim_t)
+        if which == "join_str":
+            return chip_smoke.join_str_plan(T, fact_t, dim_t)
+        if which in ("right_outer", "full_outer"):
+            return chip_smoke.outer_plan(
+                T, fact_t, dim_t, T.JoinType.RIGHT_OUTER
+                if which == "right_outer" else T.JoinType.FULL_OUTER,
+                out_cap)
         return chip_smoke.dup8_plan(T, fact_t, dim_t, T.JoinType.INNER, False)
 
     print(f"plan: {which}")

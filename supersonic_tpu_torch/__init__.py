@@ -8,9 +8,9 @@ CUDA C++ (``csrc/``) and built at their first launch on a CUDA tensor; on
 CPU tensors every kernel wrapper runs its plain PyTorch version.  See
 ROADMAP.md for what is ported and what is still to come.
 """
-from .types import (BINARY, BOOL, DOUBLE, FLOAT, INT32, INT64, STRING,
-                    UINT64, DataType, TypeError_)
-from .schema import Attribute, SchemaError, TupleSchema
+from .types import (BINARY, BOOL, DATE, DATETIME, DOUBLE, ENUM, FLOAT, INT32,
+                    INT64, STRING, UINT32, UINT64, DataType, TypeError_)
+from .schema import Attribute, EnumDefinition, SchemaError, TupleSchema
 from .batch import Column, Table, gather_table
 from .dictionary import Dictionary
 from . import exprs

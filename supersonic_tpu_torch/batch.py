@@ -22,10 +22,10 @@ result outgrows its planned capacity raises the same error flag
 ``num_rows`` hold unspecified values.
 
 Tables built on the host (``from_data``, ``from_numpy``) carry planner
-statistics computed from the host arrays before the upload: per integer
-column (min, max), and the columns whose values are the row position plus
-a constant (dense primary keys).  ``ScanTable`` hands them to the planner,
-so bind never reads the device.
+statistics computed from the host arrays before the upload: per INT32,
+INT64, DATE, DATETIME and ENUM column (min, max), and the columns whose
+values are the row position plus a constant (dense primary keys).
+``ScanTable`` hands them to the planner, so bind never reads the device.
 """
 from __future__ import annotations
 
@@ -39,7 +39,9 @@ from .schema import SchemaError, TupleSchema
 from .types import (DataType, check_column_type, is_variable_length,
                     physical_dtype, torch_dtype)
 
-_STAT_TYPES = (DataType.INT32, DataType.INT64)
+# columns with host (min, max) statistics: the integer-valued types
+_STAT_TYPES = (DataType.INT32, DataType.INT64, DataType.DATE,
+               DataType.DATETIME, DataType.ENUM)
 
 
 class Column(NamedTuple):
@@ -173,7 +175,8 @@ class Table:
         numpy arrays; the arguments are those of ``from_numpy``.  A
         STRING/BINARY column given as str/bytes values (None = NULL) is
         dictionary-encoded, unless ``dicts`` has its dictionary: then the
-        data are its codes."""
+        data are its codes.  An ENUM column may give value names, which map
+        to their codes through the attribute's ``EnumDefinition``."""
         arrays = {}
         dicts = dict(dicts or {})
         for a in schema:
@@ -188,6 +191,9 @@ class Table:
                 continue
             else:
                 lst = list(raw)
+                if a.type == DataType.ENUM:
+                    lst = [a.enum.code_of(v) if isinstance(v, str) else v
+                           for v in lst]
                 valid = np.array([v is not None for v in lst], dtype=bool)
                 vals = np.array([v if v is not None else 0 for v in lst],
                                 dtype=physical_dtype(a.type))
@@ -212,7 +218,7 @@ class Table:
     # -- host materialization -------------------------------------------------
     def to_numpy(self) -> dict[str, np.ndarray]:
         """Live rows on the host (object arrays, None = NULL, for nullable
-        columns)."""
+        columns; ENUM columns as object arrays of value names)."""
         n = int(self.num_rows)
         out: dict[str, np.ndarray] = {}
         for attr in self.schema:
@@ -225,6 +231,14 @@ class Table:
                 if col.valid is not None:
                     decoded[~col.valid[:n].cpu().numpy()] = None
                 out[attr.name] = decoded
+            elif attr.type == DataType.ENUM:
+                valid = (np.ones(n, dtype=bool) if col.valid is None
+                         else col.valid[:n].cpu().numpy())
+                names = np.empty(n, dtype=object)
+                for i in range(n):
+                    names[i] = attr.enum.name_of(int(vals[i])) if valid[i] \
+                        else None
+                out[attr.name] = names
             elif col.valid is not None:
                 valid = col.valid[:n].cpu().numpy()
                 obj = np.empty(n, dtype=object)

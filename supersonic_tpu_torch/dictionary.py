@@ -13,7 +13,8 @@ which is what makes sort/compare pure device ops (SURVEY.md §7.3 strings).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import weakref
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -23,6 +24,9 @@ class Dictionary:
     """Immutable code->value map. values[code] is the decoded Python value."""
 
     values: tuple  # tuple of str or bytes, sorted ascending => order-preserving
+    # (weak ref to the last dictionary ``codes_in`` mapped into, its map)
+    _codes_in: list = field(default_factory=list, init=False, repr=False,
+                            compare=False)
 
     def __len__(self) -> int:
         return len(self.values)
@@ -46,6 +50,22 @@ class Dictionary:
     def is_sorted(self) -> bool:
         return all(self.values[i] <= self.values[i + 1] for i in range(len(self.values) - 1))
 
+    def codes_in(self, other: "Dictionary") -> np.ndarray:
+        """int32 map of this dictionary's codes into ``other``'s, -1 where
+        ``other`` lacks the value (at least one entry).  It takes a host
+        pass over both, so the map into the last ``other`` is kept for the
+        next call (a plan bound again over the same tables)."""
+        last = self._codes_in
+        if last and last[0]() is other:
+            return last[1]
+        index = {v: i for i, v in enumerate(other.values)}
+        out = np.fromiter((index.get(v, -1) for v in self.values), np.int32,
+                          len(self.values))
+        if not out.size:
+            out = np.zeros(1, dtype=np.int32)
+        last[:] = [weakref.ref(other), out]
+        return out
+
 
 class DeferredDictionary(Dictionary):
     """Dictionary whose values are produced by the RUN, not the bind
@@ -63,6 +83,7 @@ class DeferredDictionary(Dictionary):
 
     def __init__(self):
         object.__setattr__(self, "values", ())
+        object.__setattr__(self, "_codes_in", [])
         object.__setattr__(self, "resolved", False)
 
     def resolve(self, values) -> None:

@@ -1,7 +1,7 @@
 """Operator surface of the port (so far: scan, filter, project, compute,
-INNER and LEFT_OUTER joins over dense integer keys with UNIQUE or
-NOT_UNIQUE rhs, group-by (dense, sort path and the aggregate pushdown),
-sort, MergeUnionAll and UnionAll)."""
+hash joins of every JoinType over keys of every carried column type with
+UNIQUE or NOT_UNIQUE rhs, group-by (dense, sort path and the aggregate
+pushdown), sort, MergeUnionAll and UnionAll)."""
 from .aggregate import (AggregationSpecification, AggSpec, Aggregation,
                         GroupAggregate, GroupAggregateOptions)
 from .base import (BindContext, BoundOperation, CancellationToken,

@@ -9,8 +9,9 @@ the consumer re-orders the rows anyway (Sort binds its child
 ``_unordered``).
 
   * Dense path: when the group keys have a planned composite domain of at
-    most 2048 slots (integer keys with planner statistics, STRING/BINARY
-    keys by dictionary size) and every input fits the kernel's 32-bit
+    most 2048 slots (integer, DATE and DATETIME keys with planner
+    statistics, STRING/BINARY keys by dictionary size, ENUM keys by their
+    value map) and every input fits the kernel's 32-bit
     accumulators, every aggregate is one request of ONE keyed
     segment-reduce launch (kernels/segment_reduce.py), which reads the raw
     key lanes and codes the slots itself; the K slots are then finalized
@@ -119,15 +120,15 @@ def _resolve_output_attr(spec: AggSpec, schema: TupleSchema) -> Attribute:
 
 _DENSE_DOMAIN_MAX = 2048  # segment_reduce MAX_SEGMENTS
 # inputs the kernel's 32-bit accumulators take (a BOOL as a 0/1 int32)
-_I32_INPUTS = (DataType.FLOAT, DataType.INT32, DataType.BOOL, DataType.STRING,
-               DataType.BINARY)
+_I32_INPUTS = (DataType.FLOAT, DataType.INT32, DataType.BOOL, DataType.DATE,
+               DataType.ENUM, DataType.STRING, DataType.BINARY)
 
 
 def _dense_domain(cb, names, key_attrs, specs, schema_in):
     """(dims, K) when the group keys have a planned composite domain of at
-    most 2048 slots: per key (name, attr, kmin, K_i), from the dictionary
-    size of a STRING/BINARY key or the planner statistics of an INT32/INT64
-    key.  None sends the group-by to the sort path, as the JAX package
+    most 2048 slots: per key (name, attr, kmin, K_i), from the value map of
+    an ENUM key, the dictionary size of a STRING/BINARY key or the planner
+    statistics of an INT32/INT64/DATE/DATETIME key.  None sends the group-by to the sort path, as the JAX package
     does: a nullable key, a key without statistics, more slots, a 64-bit or
     DOUBLE input of SUM/MIN/MAX, or a SUM into an 8-byte output (SUM
     aggregates in its output type, which the kernel's 32-bit accumulators
@@ -137,12 +138,15 @@ def _dense_domain(cb, names, key_attrs, specs, schema_in):
     for name, key_attr in zip(names, key_attrs):
         if key_attr.nullable:
             return None
-        if key_attr.type in (DataType.STRING, DataType.BINARY):
+        if key_attr.type == DataType.ENUM:
+            dom = (0, max(len(key_attr.enum.names) - 1, 0))
+        elif key_attr.type in (DataType.STRING, DataType.BINARY):
             d = cb.dicts.get(name)
             if d is None:
                 return None
             dom = (0, max(len(d) - 1, 0))
-        elif key_attr.type in (DataType.INT32, DataType.INT64):
+        elif key_attr.type in (DataType.INT32, DataType.INT64, DataType.DATE,
+                               DataType.DATETIME):
             dom = cb.stats.get(name)
             if dom is None:
                 return None
@@ -591,7 +595,7 @@ class GroupAggregate(Operation):
         # _unordered: the consumer re-orders the rows anyway (Sort), so the
         # insertion-order re-rank and its firstpos request are dropped
         from .filter import bind_predicates, keep_mask, unwrap_filters
-        from .hash_join import HashJoin, KeyUniqueness
+        from .hash_join import binds_masked
         _unordered = _unordered or getattr(self, "_always_unordered", False)
         if not getattr(self, "_pushdown_disabled", False):
             pushed = self._try_aggregate_pushdown(ctx, _unordered)
@@ -611,8 +615,7 @@ class GroupAggregate(Operation):
         # a UNIQUE join child binds masked: its keep mask (the matches for
         # INNER, the kept lhs rows for LEFT_OUTER) becomes ours; a
         # NOT_UNIQUE child expands, so it binds unmasked
-        masked_join = (isinstance(inner, HashJoin)
-                       and inner.uniqueness == KeyUniqueness.UNIQUE)
+        masked_join = binds_masked(inner)
         cb = inner.bind(ctx, _masked=True) if masked_join else inner.bind(ctx)
         bound_preds = bind_predicates(preds, cb)
         names = self.group_by
@@ -660,15 +663,15 @@ class GroupAggregate(Operation):
         fewer) partials, and aggregate them again.  SUM becomes a SUM of
         partial SUMs, COUNT a SUM of partial COUNTs, MIN and MAX themselves;
         insertion order is the MIN of each partial's first probe position
-        (``Sequence`` over the probe leaf), then a Sort.  It applies where
-        both join children are (Filter*)(ScanTable) and the probe key's
-        range is at most a quarter of the probe capacity.  Returns None
-        where it does not apply, and where the rewrite needs a part the
-        port lacks (a STRING/BINARY join key, ROADMAP.md queue 1 item 11;
-        the ordered NOT_UNIQUE rewrite, whose build side carries a computed
-        position without statistics, so its join needs the merge probe,
-        item 7); the direct binding then answers."""
-        from ..exprs import Sequence as SequenceExpr, col
+        (``Sequence`` over the probe leaf), then a Sort; under a NOT_UNIQUE
+        join, the MIN of (first probe position, build row) pairs, whose
+        build row is a ``Sequence`` without statistics, so that join takes
+        the merge probe.  It applies where both join children are
+        (Filter*)(ScanTable) and the probe key's range (its statistics, or
+        a STRING/BINARY key's dictionary size) is at most a quarter of the
+        probe capacity.  Returns None where it does not apply; the direct
+        binding then answers."""
+        from ..exprs import Const, IfNull, Sequence as SequenceExpr, col
         from .compute import Compute
         from .filter import Filter, unwrap_filters
         from .hash_join import HashJoin, JoinType, KeyUniqueness
@@ -693,7 +696,7 @@ class GroupAggregate(Operation):
                     Aggregation.COUNT):
                 return None
         lleaf, lpreds = unwrap_filters(inner.lhs)
-        rleaf, _ = unwrap_filters(inner.rhs)
+        rleaf, rpreds = unwrap_filters(inner.rhs)
         if not (isinstance(lleaf, ScanTable) and isinstance(rleaf, ScanTable)):
             return None
         lschema, rschema = lleaf.table.schema, rleaf.table.schema
@@ -721,21 +724,24 @@ class GroupAggregate(Operation):
                 a = lschema.lookup(k)
             except SchemaError:
                 return None
-            if a.type not in (DataType.INT32, DataType.INT64):
-                # the JAX package ranges a STRING/BINARY key by its
-                # dictionary; the port's join takes none (item 11)
+            if a.type in (DataType.STRING, DataType.BINARY):
+                d = lleaf.table.dicts.get(k)
+                if d is None:
+                    return None
+                rng *= max(len(d), 1)
+            elif a.type in (DataType.INT32, DataType.INT64, DataType.DATE,
+                            DataType.DATETIME, DataType.ENUM):
+                if k not in lstats:
+                    return None
+                lo, hi = lstats[k]
+                rng *= hi - lo + 1
+            else:
                 return None
-            if k not in lstats:
-                return None
-            lo, hi = lstats[k]
-            rng *= hi - lo + 1
             if rng > (1 << 24):
                 return None
         lcap = lleaf.table.capacity
         if rng <= 0 or rng * 4 > lcap:
             return None
-        if not _unordered and inner.uniqueness != KeyUniqueness.UNIQUE:
-            return None  # the ordered NOT_UNIQUE rewrite (item 7)
 
         # --- the rewritten plan ---
         pre_specs: list[AggSpec] = []
@@ -763,6 +769,10 @@ class GroupAggregate(Operation):
                 final_specs.append(AggSpec(s.aggregation, pname, s.output,
                                            output_type=s.output_type))
         pre_child = inner.lhs
+        rhs_child = inner.rhs
+        rhs_proj = inner.rhs_projector
+        rank_over_pairs = (not _unordered
+                           and inner.uniqueness != KeyUniqueness.UNIQUE)
         if not _unordered:
             # first-occurrence positions over the probe LEAF rows (monotone
             # in the filtered order, so MIN over kept rows ranks groups the
@@ -773,7 +783,21 @@ class GroupAggregate(Operation):
             for p in lpreds:
                 pre_child = Filter(p, pre_child)
             pre_specs.append(AggSpec(Aggregation.MIN, "__prepos", "__prefp"))
-            final_specs.append(AggSpec(Aggregation.MIN, "__prefp", "__fp"))
+            if rank_over_pairs:
+                # NOT_UNIQUE: a group ranks by the least (first probe
+                # position, build row) pair it holds, the join's emission
+                # order, packed into one int64 (both below 2^32); the build
+                # row is a Sequence over the build leaf, under its Filters
+                rhs_child = Compute([col(n) for n in rschema.names()]
+                                    + [SequenceExpr().as_("__prebpos")],
+                                    rleaf)
+                for p in rpreds:
+                    rhs_child = Filter(p, rhs_child)
+                rhs_proj = Projector(list(rpairs) + [("__prebpos", None)])
+                final_specs.append(AggSpec(Aggregation.MIN, "__rank", "__fp"))
+            else:
+                final_specs.append(AggSpec(Aggregation.MIN, "__prefp",
+                                           "__fp"))
         pregroup = GroupAggregate(
             list(inner.lhs_keys), pre_specs, pre_child,
             GroupAggregateOptions(estimated_result_row_count=rng))
@@ -788,12 +812,22 @@ class GroupAggregate(Operation):
                     else rleaf.table.capacity + (rng if left_outer else 0))
         new_join = HashJoin(
             inner.join_type, list(inner.lhs_keys), list(inner.rhs_keys),
-            pregroup, inner.rhs, inner.uniqueness,
+            pregroup, rhs_child, inner.uniqueness,
             lhs_projector=Projector.named(*part_names),
-            rhs_projector=inner.rhs_projector, out_capacity=join_cap,
+            rhs_projector=rhs_proj, out_capacity=join_cap,
             allow_dense_lookup=inner.allow_dense_lookup)
+        final_child: Operation = new_join
+        if rank_over_pairs:
+            # LEFT_OUTER's NULL-rhs rows take build position 0 (the NULL
+            # row is its probe row's whole match list)
+            bpos = IfNull(col("__prebpos"), Const(0, DataType.INT64))
+            final_child = Compute(
+                [col(dst) for _, dst in rpairs]
+                + [col(p) for p in part_names if p != "__prefp"]
+                + [(col("__prefp") * Const(1 << 32, DataType.INT64)
+                    + bpos).as_("__rank")], new_join)
         final = GroupAggregate(
-            list(self.group_by), final_specs, new_join,
+            list(self.group_by), final_specs, final_child,
             GroupAggregateOptions(
                 estimated_result_row_count=opts.estimated_result_row_count))
         final._pushdown_disabled = True

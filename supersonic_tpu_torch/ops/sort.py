@@ -84,15 +84,14 @@ class Sort(Operation):
     def bind(self, ctx: BindContext) -> BoundOperation:
         from .aggregate import GroupAggregate
         from .filter import bind_predicates, keep_mask, unwrap_filters
-        from .hash_join import HashJoin, KeyUniqueness
+        from .hash_join import binds_masked
         inner, preds = unwrap_filters(self.child)
         # a UNIQUE join child (INNER or LEFT_OUTER) binds masked and its
         # keep mask becomes the pad mask; a NOT_UNIQUE one binds unmasked;
         # an aggregate child skips its insertion-order re-rank
         # (tie order among equal sort keys becomes key order; the
         # reference's unstable std::sort promises none either)
-        masked_join = (isinstance(inner, HashJoin)
-                       and inner.uniqueness == KeyUniqueness.UNIQUE)
+        masked_join = binds_masked(inner)
         if masked_join:
             cb = inner.bind(ctx, _masked=True)
         elif (isinstance(inner, GroupAggregate)

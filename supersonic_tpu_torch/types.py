@@ -6,11 +6,14 @@ a ``DataType -> torch.dtype`` map in place of the jnp one.  This is the
 port's own copy: importing anything from ``supersonic_tpu`` runs that
 package's ``__init__``, which imports JAX.
 
-The port carries columns of INT32, INT64, FLOAT, DOUBLE, BOOL, and STRING
-and BINARY as int32 codes into a sorted host dictionary.  UINT64 appears
-only as the default output type of COUNT; it is stored as int64 (counts
-never reach 2^63) and read back as uint64 by ``Table.to_numpy``.  Every
-other type raises ``NotImplementedError`` naming its roadmap item.
+The port carries columns of INT32, INT64, FLOAT, DOUBLE, BOOL, DATE (int32
+days), DATETIME (int64 microseconds), ENUM (int32 index into the
+attribute's ``EnumDefinition``), and STRING and BINARY as int32 codes into
+a sorted host dictionary.  UINT64 appears only as the default output type
+of COUNT; it is stored as int64 (counts never reach 2^63) and read back as
+uint64 by ``Table.to_numpy``.  UINT32 and UINT64 columns stay out: torch's
+unsigned dtypes take too few operations (ROADMAP.md queue 1 item 1).
+DATA_TYPE raises too, naming item 14.
 """
 from __future__ import annotations
 
@@ -81,10 +84,11 @@ _TRAITS: dict[DataType, TypeTraits] = {
     DataType.DATA_TYPE: TypeTraits(np.dtype(np.int32), False, False, False, False, True),
 }
 
-# Column types the port carries (ROADMAP.md queue 1 item 14 adds the rest).
+# Column types the port carries.
 COLUMN_TYPES = (DataType.INT32, DataType.INT64, DataType.FLOAT,
-                DataType.DOUBLE, DataType.BOOL, DataType.STRING,
-                DataType.BINARY)
+                DataType.DOUBLE, DataType.BOOL, DataType.DATE,
+                DataType.DATETIME, DataType.STRING, DataType.BINARY,
+                DataType.ENUM)
 
 _TORCH: dict[DataType, torch.dtype] = {
     DataType.INT32: torch.int32,
@@ -93,8 +97,11 @@ _TORCH: dict[DataType, torch.dtype] = {
     DataType.FLOAT: torch.float32,
     DataType.DOUBLE: torch.float64,
     DataType.BOOL: torch.bool,
-    DataType.STRING: torch.int32,  # dictionary codes
+    DataType.DATE: torch.int32,      # days since the epoch
+    DataType.DATETIME: torch.int64,  # microseconds since the epoch
+    DataType.STRING: torch.int32,    # dictionary codes
     DataType.BINARY: torch.int32,
+    DataType.ENUM: torch.int32,      # index into the EnumDefinition
 }
 
 
@@ -109,6 +116,10 @@ def physical_dtype(t: DataType) -> np.dtype:
 
 def check_column_type(t: DataType) -> None:
     """Raise for a column type the port does not carry yet."""
+    if t in (DataType.UINT32, DataType.UINT64):
+        raise NotImplementedError(
+            f"{t.value} columns are not ported yet (ROADMAP.md queue 1 "
+            "item 1: torch's unsigned dtypes take too few operations)")
     if t not in COLUMN_TYPES:
         raise NotImplementedError(
             f"{t.value} columns are not ported yet (ROADMAP.md queue 1 "

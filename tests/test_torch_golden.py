@@ -5,9 +5,9 @@ package's ``read_reference_file`` and moved into the port's tables with
 by tests/test_golden.py's rule (ordered, every value and NULL exact).
 
 The golden cases that need features the port does not have yet are listed
-in ROADMAP.md (queue 1 item 10).  The group-by cases compare ordered by
-their key, as tests/test_golden.py does (the row order of a hash group-by
-is the engine's)."""
+in ROADMAP.md (queue 1 item 10).  The group-by and join cases compare
+ordered by their key, as tests/test_golden.py does (the row order of a
+hash group-by or hash join is the engine's)."""
 from __future__ import annotations
 
 import pathlib
@@ -38,9 +38,16 @@ def _cols(spec: str):
     return out
 
 
+# ENUM value maps are out of band in the reference's file format; these are
+# tests/test_golden.py's (refbuild/golden_dump.cc's), by column name
+GOLDEN_ENUMS = {"e": ("iron", "zinc", "gold", "lead", "tin")}
+
+
 def _schema(ns, cols):
-    return ns.TupleSchema.of(*[(n, getattr(ns.DataType, t), nl)
-                               for n, t, nl in cols])
+    return ns.TupleSchema([
+        ns.Attribute(n, getattr(ns.DataType, t), nl,
+                     ns.EnumDefinition(GOLDEN_ENUMS[n]) if t == "ENUM"
+                     else None) for n, t, nl in cols])
 
 
 def _manifest(case: str):
@@ -222,3 +229,49 @@ def test_golden_bench_group():
         ["col0"], [T.AggSpec(T.Aggregation.MAX, "col1", "col1_maxes")],
         T.ScanTable(t)))
     assert_tables_match(out, _golden_out("bench_group"), sort_by=[0])
+
+
+def test_golden_guide_join():
+    """A UNIQUE INNER join on an INT32 key (nullable on the probe side)
+    carrying a DATE payload; the C++ engine's row order is its own, so the
+    rows compare ordered by book_id, as tests/test_golden.py does."""
+    authors, books = _inputs("guide_join")
+    assert books.schema.lookup("date_published").type == T.DATE
+    out = T.execute(T.HashJoin(
+        T.JoinType.INNER, ["author_id_ref"], ["author_id"],
+        T.ScanTable(books), T.ScanTable(authors), T.KeyUniqueness.UNIQUE,
+        lhs_projector=T.Projector.named("book_id", "title", "date_published"),
+        rhs_projector=T.Projector.named("name", "nobel")))
+    assert_tables_match(out, _golden_out("guide_join"), sort_by=[0])
+
+
+def test_golden_bench_join():
+    """A LEFT_OUTER UNIQUE join on a STRING key against a group-by's
+    output: the build side's dictionary is the group-by's, remapped into
+    the probe's; ordered by the unique STRING key L.col1."""
+    lhs_in, rhs_in = _inputs("bench_join")
+    lhs = T.Sort(_bench_sort_keys(T), T.ScanTable(lhs_in))
+    rhs = T.GroupAggregate(
+        ["col0"], [T.AggSpec(T.Aggregation.MAX, "col1", "col1_maxes")],
+        T.ScanTable(rhs_in))
+    out = T.execute(T.HashJoin(
+        T.JoinType.LEFT_OUTER, ["col1"], ["col0"], lhs, rhs,
+        T.KeyUniqueness.UNIQUE,
+        lhs_projector=T.Projector([("col0", "L.col0"), ("col1", "L.col1")]),
+        rhs_projector=T.Projector([("col0", "R.col0"),
+                                   ("col1_maxes", "R.col1_maxes")])))
+    assert_tables_match(out, _golden_out("bench_join"), sort_by=[1])
+
+
+def test_golden_enum_binary():
+    """ENUM (compared by value number) and BINARY group keys, both
+    nullable (the sort path), an INT64 SUM and a COUNT, then a Sort by the
+    two keys."""
+    (t,) = _inputs("enum_binary")
+    A = T.Aggregation
+    out = T.execute(T.Sort(
+        [T.SortKey("e"), T.SortKey("b")],
+        T.GroupAggregate(["e", "b"], [T.AggSpec(A.SUM, "v", "sv"),
+                                      T.AggSpec(A.COUNT, "b", "cb")],
+                         T.ScanTable(t))))
+    assert_tables_match(out, _golden_out("enum_binary"))

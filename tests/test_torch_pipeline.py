@@ -259,17 +259,22 @@ def test_dense_aggregate_float_nans_and_signed_zeros_match_jax():
     assert all(np.isnan(r[4]) for r in want)  # the JAX kernel's one-hot dot
 
 
+def _counts(t):
+    """COUNT per fk: a UINT64 column (stored as int64)."""
+    return T.GroupAggregate(["fk"], [T.AggSpec(T.Aggregation.COUNT, None,
+                                               "c")], T.ScanTable(t))
+
+
 @pytest.mark.parametrize("make", [
-    # dense LEFT_OUTER and NOT_UNIQUE joins are ported; without dense
-    # lookups they need the merge probe, which is not
-    lambda t, d: T.HashJoin(T.JoinType.LEFT_OUTER, ["fk"], ["pk"],
-                            T.ScanTable(t), T.ScanTable(d),
+    # every join type and key type the port carries is ported; a UINT64
+    # key (COUNT's output) is not (item 1), on either side
+    lambda t, d: T.HashJoin(T.JoinType.LEFT_OUTER, ["c"], ["pk"],
+                            _counts(t), T.ScanTable(d),
                             T.KeyUniqueness.UNIQUE,
                             rhs_projector=T.Projector.named("g"),
                             allow_dense_lookup=False),
-    lambda t, d: T.HashJoin(T.JoinType.INNER, ["fk"], ["pk"],
-                            T.ScanTable(t), T.ScanTable(d),
-                            rhs_projector=T.Projector.named("g"),
+    lambda t, d: T.HashJoin(T.JoinType.INNER, ["pk"], ["c"],
+                            T.ScanTable(d), _counts(t),
                             allow_dense_lookup=False),
     # the sort path and the widened dense path are ported; their item 12
     # options (max_unique_keys_in_result, DISTINCT) are not
@@ -295,16 +300,16 @@ def test_outside_the_slice_raises_not_implemented(make):
 
 def test_string_columns_are_not_ported():
     """STRING columns are ported now (dictionary codes, as in the JAX
-    package); string constants and the other types of ROADMAP.md queue 1
-    item 14 still raise."""
+    package); string constants (ROADMAP.md queue 1 item 14) and UINT32
+    columns (item 1) still raise."""
     t = T.Table.from_data(T.TupleSchema.of(("s", T.DataType.STRING)),
                           {"s": ["b", "a", None, "b"]}, device="cpu")
     j = J.Table.from_data(J.TupleSchema.of(("s", J.DataType.STRING)),
                           {"s": ["b", "a", None, "b"]})
     assert t.to_pylist() == j.to_pylist() == [("b",), ("a",), (None,),
                                               ("b",)]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.Table.from_data(T.TupleSchema.of(("d", T.DataType.DATE)),
+    with pytest.raises(NotImplementedError, match="item 1:"):
+        T.Table.from_data(T.TupleSchema.of(("d", T.DataType.UINT32)),
                           {"d": [1]}, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         T.execute(T.Filter(T.col("s") > T.Const("a", T.DataType.STRING),
@@ -396,3 +401,142 @@ def test_from_data_takes_the_jax_argument_order():
         assert p["device"].default == "cuda"
     with pytest.raises(TypeError):  # a fifth positional is not a device
         T.Table.from_data(s, data, 16, None, "cpu")
+
+
+COLORS = ("red", "green", "blue", "cyan", "magenta")
+
+
+def _typed_schema(ns, nullable=True):
+    """DATE, DATETIME and ENUM columns and an INT32 payload."""
+    return ns.TupleSchema([
+        ns.Attribute("d", ns.DataType.DATE, nullable),
+        ns.Attribute("t", ns.DataType.DATETIME, nullable),
+        ns.Attribute("e", ns.DataType.ENUM, nullable,
+                     ns.EnumDefinition(COLORS)),
+        ns.Attribute("x", ns.DataType.INT32, False)])
+
+
+def _typed_data(n=300, seed=14, nulls=True):
+    """Days around 2020, microsecond instants a minute apart, ENUM codes;
+    10% NULL each when ``nulls``."""
+    rng = np.random.default_rng(seed)
+    data = {"d": rng.integers(18250, 18262, n).astype(np.int32),
+            "t": (1_577_836_800_000_000
+                  + rng.integers(0, 9, n) * 60_000_000),
+            "e": rng.integers(0, len(COLORS), n).astype(np.int32),
+            "x": rng.integers(-50, 50, n).astype(np.int32)}
+    out = {}
+    for k, v in data.items():
+        out[k] = ((v, rng.random(n) >= 0.1) if nulls and k != "x" else v)
+    return out
+
+
+def test_date_datetime_enum_columns_round_trip():
+    """DATE (int32 days), DATETIME (int64 microseconds) and ENUM (int32
+    codes, read back as value names) come through from_data (ENUM by name
+    or code, None = NULL) and from_numpy as in the JAX package, and
+    to_numpy and to_pylist give its values."""
+    data = {"d": [18262, None, -1, 0], "t": [None, 1_600_000_000_123_456,
+                                               -5, 2**40],
+            "e": ["blue", 0, None, "magenta"], "x": [1, 2, 3, 4]}
+    t = T.Table.from_data(_typed_schema(T), data, device="cpu")
+    j = J.Table.from_data(_typed_schema(J), data)
+    assert t.to_pylist() == j.to_pylist() == [
+        (18262, None, "blue", 1), (None, 1_600_000_000_123_456, "red", 2),
+        (-1, -5, None, 3), (0, 2**40, "magenta", 4)]
+    for name, col in t.to_numpy().items():
+        want = j.to_numpy()[name]
+        assert col.dtype == want.dtype and col.tolist() == want.tolist()
+    assert t.columns["d"].values.dtype == torch.int32
+    assert t.columns["t"].values.dtype == torch.int64
+    assert t.columns["e"].values.dtype == torch.int32
+    arrays = _typed_data(40)
+    tn = T.Table.from_numpy(_typed_schema(T), arrays, 64, device="cpu")
+    jn = J.Table.from_arrays(
+        _typed_schema(J), {k: v[0] if isinstance(v, tuple) else v
+                           for k, v in arrays.items()},
+        {k: v[1] if isinstance(v, tuple) else None
+         for k, v in arrays.items()}, 40, None, 64)
+    assert tn.to_pylist() == jn.to_pylist() and tn.capacity == 64
+
+
+def test_date_datetime_enum_host_statistics():
+    """Host planner statistics of DATE, DATETIME and ENUM columns are the
+    JAX package's (min, max) over the live non-NULL values, and a DATE
+    that is the row position plus a constant is a row-id key."""
+    from supersonic_tpu.ops.scan import table_rowid_cols, table_stats
+
+    data = _typed_data(200)
+    data["x"] = np.arange(7, 207, dtype=np.int32)
+    data["d"] = np.arange(18000, 18200, dtype=np.int32)
+    t = T.Table.from_numpy(_typed_schema(T), data, device="cpu")
+    j = J.Table.from_arrays(
+        _typed_schema(J), {k: v[0] if isinstance(v, tuple) else v
+                           for k, v in data.items()},
+        {k: v[1] if isinstance(v, tuple) else None
+         for k, v in data.items()}, 200)
+    jstats = table_stats(j)
+    assert t.stats == jstats
+    assert set(jstats) == {"d", "t", "e", "x"}
+    assert t.rowid == table_rowid_cols(j, jstats) == {"d", "x"}
+
+
+@pytest.mark.parametrize("keys", [["d"], ["t"], ["e"], ["e", "d"]])
+def test_date_datetime_enum_sort_and_group_like_jax(keys):
+    """Sorting by and grouping on DATE, DATETIME and ENUM keys (nullable:
+    NULL first ascending, NULL equal to NULL) gives the JAX package's rows:
+    they order as integers (ENUM by code, not by name)."""
+    data = _typed_data()
+    t = T.Table.from_numpy(_typed_schema(T), data, device="cpu")
+    j = J.Table.from_arrays(
+        _typed_schema(J), {k: v[0] for k, v in data.items()
+                           if isinstance(v, tuple)} | {"x": data["x"]},
+        {k: v[1] if isinstance(v, tuple) else None
+         for k, v in data.items()}, 300)
+
+    def sort(ns, tab):
+        return ns.Sort([ns.SortKey(k, ascending=i % 2 == 0)
+                        for i, k in enumerate(keys)] + [ns.SortKey("x")],
+                       ns.ScanTable(tab))
+
+    def group(ns, tab):
+        A = ns.Aggregation
+        return ns.GroupAggregate(
+            keys, [ns.AggSpec(A.COUNT, None, "c"),
+                   ns.AggSpec(A.MIN, "d", "dmin"),
+                   ns.AggSpec(A.MAX, "t", "tmax"),
+                   ns.AggSpec(A.SUM, "x", "sx", ns.DataType.INT64)],
+            ns.ScanTable(tab))
+
+    for plan in (sort, group):
+        got = T.execute(plan(T, t))
+        assert got.to_pylist() == J.execute(plan(J, j)).to_pylist()
+        assert [got.schema.lookup(k).type for k in keys] == \
+            [_typed_schema(T).lookup(k).type for k in keys]
+
+
+def test_dense_group_by_takes_date_and_enum_keys():
+    """Non-nullable DATE and ENUM keys are dense (the value map, the DATE
+    statistics; 5 x 12 slots): one keyed segment reduce, the rows in
+    first-occurrence order against numpy."""
+    import supersonic_tpu_torch.ops.aggregate as TA
+
+    data = _typed_data(nulls=False)
+    s = _typed_schema(T, nullable=False)
+    t = T.Table.from_numpy(s, data, device="cpu")
+    plan = T.GroupAggregate(
+        ["e", "d"], [T.AggSpec(T.Aggregation.COUNT, None, "c"),
+                     T.AggSpec(T.Aggregation.MAX, "d", "dmax"),
+                     T.AggSpec(T.Aggregation.SUM, "x", "sx")],
+        T.ScanTable(t))
+    cb = T.ScanTable(t).bind(T.BindContext())
+    dense = TA._dense_domain(cb, ["e", "d"], [s.lookup("e"), s.lookup("d")],
+                             plan.spec.specs, s)
+    assert dense is not None and dense[1] == len(COLORS) * 12
+    rows = T.execute(plan).to_pylist()
+    want = {}
+    for e, d, x in zip(data["e"].tolist(), data["d"].tolist(),
+                       data["x"].tolist()):
+        c, _, sx = want.get((COLORS[e], d), (0, d, 0))
+        want[(COLORS[e], d)] = (c + 1, d, sx + x)
+    assert rows == [k + v for k, v in want.items()]

@@ -3,12 +3,10 @@ CPU, mirroring tests/test_agg_pushdown.py: the rewrite (pregroup the probe
 side by its join key, join the partials, aggregate again, Sort by first
 position when ordered) must fire where the JAX package's fires, give its
 rows and the port's own direct binding's rows, with the direct binding's
-exact output schema (COUNT a non-nullable UINT64).  Where the rewrite
-needs a part the port lacks (the ordered NOT_UNIQUE rewrite, whose join
-needs the merge probe; a STRING join key), it declines and the direct
-binding answers, or raises as it does without the pushdown.  Each case
-sets the binding on the plan (``_pushdown_disabled``), whatever the
-port's default."""
+exact output schema (COUNT a non-nullable UINT64).  That includes the
+ordered NOT_UNIQUE rewrite, whose join takes the merge probe, and a
+STRING join key ranged by its dictionary.  Each case sets the binding on
+the plan (``_pushdown_disabled``), whatever the port's default."""
 import numpy as np
 import pytest
 import torch
@@ -283,21 +281,22 @@ def test_pushdown_not_unique_under_sort(counted):
 
 
 def test_ordered_not_unique_pushdown_declines(counted):
-    """The ordered NOT_UNIQUE rewrite ranks groups by a computed build
-    position, which has no statistics, so its join would need the merge
-    probe (ROADMAP.md queue 1 item 7): the port declines and its direct
-    binding gives the JAX package's pushdown rows."""
+    """The ordered NOT_UNIQUE rewrite ranks groups by the least (first
+    probe position, build row) pair, whose build row is a computed column
+    without statistics, so its join takes the merge probe.  The port
+    declined it before the merge probe was ported; now it fires, as the JAX
+    package's does, and gives its rows and the direct binding's."""
     jargs, targs = _not_unique_data()
     got, direct, want = _run(_not_unique_agg, jargs, targs)
-    assert counted == {"J": 1, "T": 0}
-    _rows_close(got.to_pylist(), want.to_pylist(), 1e-5)
-    assert got.to_pylist() == direct.to_pylist()
+    assert counted == {"J": 1, "T": 1}
+    _check(got, direct, want)
 
 
 def test_string_join_key_pushdown_declines(counted):
-    """The JAX package ranges a STRING join key by its dictionary; the
-    port's join takes no STRING key (item 11), so the port declines and its
-    direct binding raises as it does without the pushdown."""
+    """A STRING join key is ranged by its dictionary, as in the JAX
+    package: the port declined it before its join took STRING keys; now the
+    rewrite fires in both packages and gives the JAX package's rows and the
+    direct binding's."""
     rng = np.random.default_rng(12)
     n, m = 400, 20
     words = tuple(f"k{i:02d}" for i in range(m))
@@ -316,10 +315,50 @@ def test_string_join_key_pushdown_declines(counted):
                         lhs_projector=ns.Projector.named("v"),
                         rhs_projector=ns.Projector.named("g")))
 
-    _bind(p(J, jf, jd), True).bind(J.BindContext())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        T.execute(_bind(p(T, tf, td), True))
-    assert counted == {"J": 1, "T": 0}
+    got, direct, want = _run(p, (jf, jd), (tf, td))
+    assert counted == {"J": 1, "T": 1}
+    _check(got, direct, want)
+
+
+@pytest.mark.parametrize("ordered", [True, False])
+def test_pushdown_string_key_not_unique_separate_dictionaries(counted,
+                                                              ordered):
+    """The ordered and the sorted NOT_UNIQUE rewrite over a STRING join key
+    whose build side has a dictionary of its own, holding words the probe
+    lacks: the rewritten join remaps the build side and ranks groups by
+    (probe, build row) pairs through the merge probe; the rows are the JAX
+    package's pushdown rows and the port's direct rows."""
+    rng = np.random.default_rng(23)
+    n, m = 600, 90
+    lw = tuple(f"k{i:02d}" for i in range(0, 40, 2))
+    rw = tuple(f"k{i:02d}" for i in range(0, 40, 3))
+    jf, tf = tables(J, T, (("fk", "STRING", False), ("v", "FLOAT", False)), {
+        "fk": rng.integers(0, len(lw), n).astype(np.int32),
+        "v": rng.random(n, dtype=np.float32)}, {"fk": lw})
+    jd, td = tables(J, T, (("pk", "STRING", False), ("g", "INT32", True)), {
+        "pk": rng.integers(0, len(rw), m).astype(np.int32),
+        "g": (rng.integers(0, 5, m).astype(np.int32),
+              rng.random(m) < 0.9)}, {"pk": rw})
+
+    def agg(ns, f, d):
+        A = ns.Aggregation
+        return ns.GroupAggregate(
+            ["g"], [ns.AggSpec(A.SUM, "v", "sv"),
+                    ns.AggSpec(A.COUNT, None, "c")],
+            ns.HashJoin(ns.JoinType.INNER, ["fk"], ["pk"], ns.ScanTable(f),
+                        ns.ScanTable(d), ns.KeyUniqueness.NOT_UNIQUE,
+                        lhs_projector=ns.Projector.named("v"),
+                        rhs_projector=ns.Projector.named("g"),
+                        out_capacity=8 * n),
+            ns.GroupAggregateOptions(estimated_result_row_count=16))
+
+    def p(ns, f, d):
+        return agg(ns, f, d) if ordered else ns.Sort(
+            [ns.SortKey("sv", False)], agg(ns, f, d))
+
+    got, direct, want = _run(p, (jf, jd), (tf, td))
+    assert counted == {"J": 1, "T": 1}
+    _check(got, direct, want)
 
 
 @pytest.mark.parametrize("uniq", ["UNIQUE", "NOT_UNIQUE"])
@@ -327,7 +366,8 @@ def test_string_join_key_pushdown_declines(counted):
 def test_pushdown_left_outer(counted, uniq, ordered):
     """LEFT_OUTER decomposes too: an unmatched probe row's partial emits
     one NULL-rhs row, so the NULL-key group gets the same partials.  The
-    ordered NOT_UNIQUE case declines in the port (item 7)."""
+    ordered NOT_UNIQUE case ranks by (probe, build row) pairs through the
+    merge probe."""
     rng = np.random.default_rng(5)
     n, m = 20000, 2000
     dup = 1 if uniq == "UNIQUE" else 4
@@ -359,8 +399,7 @@ def test_pushdown_left_outer(counted, uniq, ordered):
             [ns.SortKey("sv", False)], agg(ns, f, d))
 
     got, direct, want = _run(p, (jf, jd), (tf, td))
-    declines = ordered and uniq == "NOT_UNIQUE"
-    assert counted == {"J": 1, "T": 0 if declines else 1}
+    assert counted == {"J": 1, "T": 1}
     assert None in [r[0] for r in got.to_pylist()]
     _check(got, direct, want)
 

@@ -9,9 +9,14 @@ FACT_SCHEMA = (("fk", "INT32", False), ("v", "FLOAT", False))
 DIM_SCHEMA = (("pk", "INT32", False), ("g", "INT32", False))
 
 
-def schema(ns, cols):
-    return ns.TupleSchema.of(*[(n, getattr(ns.DataType, t), nullable)
-                               for n, t, nullable in cols])
+def schema(ns, cols, enums=None):
+    """``cols``: (name, type name, nullable); ``enums[name]`` names the
+    values of an ENUM column."""
+    enums = enums or {}
+    return ns.TupleSchema([
+        ns.Attribute(n, getattr(ns.DataType, t), nullable,
+                     ns.EnumDefinition(enums[n]) if n in enums else None)
+        for n, t, nullable in cols])
 
 
 def headline_data(fact_rows, dim_rows, groups=64, seed=42, permute=False):
@@ -66,6 +71,26 @@ def headline_plan(ns, fact, dim, projectors=True, groups=64):
                    headline_aggregate(ns, fact, dim, projectors, groups))
 
 
+def bit_rows(rows):
+    """Rows with each float as its repr, so NaN equals NaN and -0.0 differs
+    from 0.0."""
+    return [tuple(repr(x) if isinstance(x, float) else x for x in r)
+            for r in rows]
+
+
+def same_rows(J, T, make, *pairs):
+    """Execute make(ns, *tables) in both packages over (JAX table, port
+    table) pairs: equal schemas, and rows equal in order with floats bit
+    for bit.  Returns the port's rows."""
+    want = J.execute(make(J, *[p[0] for p in pairs]))
+    got = T.execute(make(T, *[p[1] for p in pairs]))
+    assert [(a.name, a.type.value, a.nullable) for a in got.schema] == \
+        [(a.name, a.type.value, a.nullable) for a in want.schema]
+    rows = got.to_pylist()
+    assert bit_rows(rows) == bit_rows(want.to_pylist())
+    return rows
+
+
 def rows_by_key(table, key):
     """{key value: row tuple} of a result table's live rows."""
     names = list(table.schema.names())
@@ -109,23 +134,26 @@ def torch_raised(plan, leaves):
     return {n for n, f in zip(names, flags.tolist()) if f}
 
 
-def tables(J, T, cols, arrays, dicts=None, capacity=None):
+def tables(J, T, cols, arrays, dicts=None, capacity=None, enums=None):
     """(JAX table, port table on the CPU) of the same numpy columns:
     ``arrays[name]`` is a value array or a ``(values, valid)`` pair;
     a STRING/BINARY column gives int32 codes and ``dicts[name]`` the sorted
-    tuple of its values."""
+    tuple of its values, or a (JAX, port) pair of Dictionary objects that
+    tables share; ``enums[name]`` names an ENUM column's values."""
     values, valids = {}, {}
     for name, raw in arrays.items():
         values[name], valids[name] = (raw if isinstance(raw, tuple)
                                       else (raw, None))
     n = len(next(iter(values.values())))
-    dicts = dicts or {}
-    jt = J.Table.from_arrays(schema(J, cols), values, valids, n,
-                             {k: J.Dictionary(tuple(v))
-                              for k, v in dicts.items()}, capacity)
-    tt = T.Table.from_numpy(schema(T, cols), arrays, capacity,
-                            {k: T.Dictionary(tuple(v))
-                             for k, v in dicts.items()}, device="cpu")
+    jd, td = {}, {}
+    for k, v in (dicts or {}).items():
+        shared = isinstance(v[0], J.Dictionary)
+        jd[k] = v[0] if shared else J.Dictionary(tuple(v))
+        td[k] = v[1] if shared else T.Dictionary(tuple(v))
+    jt = J.Table.from_arrays(schema(J, cols, enums), values, valids, n, jd,
+                             capacity)
+    tt = T.Table.from_numpy(schema(T, cols, enums), arrays, capacity, td,
+                            device="cpu")
     return jt, tt
 
 
