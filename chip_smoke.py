@@ -88,6 +88,7 @@ import subprocess
 import sys
 import time
 import traceback
+import warnings
 
 import numpy as np
 
@@ -1767,6 +1768,444 @@ def check_full_outer(torch, out, fk, v, dim):
     return n, anti.shape[0]
 
 
+# --- paths (o)-(t) and CONCAT: the scalar, distinct, cluster, clamped and
+# quota aggregates, Limit and friends, the row-id joins -------------------
+
+Q6_LO, Q6_HI = 8766, 9131     # 1994-01-01 and 1995-01-01 as DATE days
+CLUSTER_ROWS = 1000           # path (q2): rows a raw-order cluster
+CLAMP_KEYS = 1000             # path (r): max_unique_keys_in_result
+QUOTA_ROWS = 250_000          # path (r): result rows the quota holds
+CONCAT_ROWS = 1_000_000       # the CONCAT path's slice of (h)'s table
+LIMIT_OFFSET = 25_000_000     # path (s2): Limit(25M, 50M) of the fact
+LIMIT_ROWS = 50_000_000
+
+
+def host_cols(out, names=None):
+    """The live rows of ``out``'s columns as numpy arrays, read straight
+    from the tensors (no Python object a value); each must be all valid."""
+    n = int(out.num_rows)
+    cols = {}
+    for name in names or out.schema.names():
+        c = out.columns[name]
+        if c.valid is not None:
+            assert bool(c.valid[:n].all()), f"NULL in {name}"
+        cols[name] = c.values[:n].cpu().numpy()
+    return cols
+
+
+def lineitem_data(n=FACT_ROWS, seed=42):
+    """Path (o)'s lineitem-shaped columns from default_rng(seed), with the
+    TPC-H spec's distributions (section 4.2.3): l_shipdate uniform over
+    1992-01-02 .. 1998-12-01, l_discount 0.00-0.10 in steps of 0.01,
+    l_quantity 1-50, l_extendedprice = l_quantity x a retail price in
+    [900, 2100), to the cent."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(1, 51, n).astype(np.int32)
+    return {"l_shipdate": rng.integers(8036, 10562, n).astype(np.int32),
+            "l_discount": rng.integers(0, 11, n) / 100,
+            "l_quantity": q,
+            "l_extendedprice": np.round(
+                q * (900 + rng.random(n) * 1200), 2)}
+
+
+def lineitem_table(T, li, dev):
+    schema = T.TupleSchema.of(
+        ("l_shipdate", T.DATE, False), ("l_discount", T.DOUBLE, False),
+        ("l_quantity", T.INT32, False), ("l_extendedprice", T.DOUBLE, False))
+    return T.Table.from_numpy(schema, li, device=dev)
+
+
+def q6_plan(T, t, hi=Q6_HI):
+    """Path (o): TPC-H Q6's plan, ScalarAggregate(SUM(rev) DOUBLE,
+    COUNT(*)) over Compute(rev = l_extendedprice * l_discount) over a
+    Filter on a year of l_shipdate, l_discount BETWEEN 0.05 AND 0.07 and
+    l_quantity < 24 (about 1.8% of the rows); ``hi`` = Q6_LO keeps
+    nothing."""
+    c, C = T.col, T.Const
+    pred = ((c("l_shipdate") >= C(Q6_LO, T.DATE))
+            & (c("l_shipdate") < C(hi, T.DATE))
+            & (c("l_discount") >= C(0.05, T.DOUBLE))
+            & (c("l_discount") <= C(0.07, T.DOUBLE))
+            & (c("l_quantity") < C(24, T.INT32)))
+    A = T.Aggregation
+    return T.ScalarAggregate(
+        [T.AggSpec(A.SUM, "rev", "revenue"), T.AggSpec(A.COUNT, None, "n")],
+        T.Compute([(c("l_extendedprice") * c("l_discount")).as_("rev")],
+                  T.Filter(pred, T.ScanTable(t))))
+
+
+def check_q6(out, li):
+    """Path (o): the count exact, the sum within 1e-12 of the kept rows'
+    sum of |rev|.  Returns the kept row count."""
+    keep = ((li["l_shipdate"] >= Q6_LO) & (li["l_shipdate"] < Q6_HI)
+            & (li["l_discount"] >= 0.05) & (li["l_discount"] <= 0.07)
+            & (li["l_quantity"] < 24))
+    rev = li["l_extendedprice"][keep] * li["l_discount"][keep]
+    ((revenue, n),) = out.to_pylist()
+    assert n == int(keep.sum()), "(o): Q6 count"
+    assert abs(revenue - float(np.sum(rev))) <= DOUBLE_RTOL * float(
+        np.sum(np.abs(rev))), "(o): Q6 revenue"
+    return n
+
+
+def fact_g_table(T, fact, dim, dev, n=None):
+    """The headline fact with its group g = dim.g[fk] beside fk and v (the
+    join's result, made on the host), first ``n`` rows."""
+    n = fact["fk"].shape[0] if n is None else n
+    schema = T.TupleSchema.of(("g", T.INT32, False), ("fk", T.INT32, False),
+                              ("v", T.FLOAT, False))
+    data = {"g": dim["g"][fact["fk"][:n]], "fk": fact["fk"][:n],
+            "v": fact["v"][:n]}
+    return T.Table.from_numpy(schema, data, device=dev), data
+
+
+def scalar_distinct_plan(T, t):
+    """Path (o)'s second scalar: COUNT(DISTINCT fk), SUM(DISTINCT g), MIN,
+    MAX, FIRST and LAST of v, COUNT(*) over the whole fact."""
+    A = T.Aggregation
+    return T.ScalarAggregate(
+        [T.AggSpec(A.COUNT, "fk", "dfk", distinct=True),
+         T.AggSpec(A.SUM, "g", "dg", distinct=True),
+         T.AggSpec(A.MIN, "v", "mn"), T.AggSpec(A.MAX, "v", "mx"),
+         T.AggSpec(A.FIRST, "v", "fv"), T.AggSpec(A.LAST, "v", "lv"),
+         T.AggSpec(A.COUNT, None, "n")], T.ScanTable(t))
+
+
+def check_scalar_distinct(out, fg):
+    """Path (o): every value exact."""
+    fk, g, v = fg["fk"], fg["g"], fg["v"]
+    want = (int(np.count_nonzero(np.bincount(fk))),
+            int(np.flatnonzero(np.bincount(g)).sum()), float(v.min()),
+            float(v.max()),
+            float(v[0]), float(v[-1]), fk.shape[0])
+    assert out.to_pylist() == [want], ("(o): scalar DISTINCT", want)
+
+
+def distinct_groupby_plan(T, t):
+    """Path (p): TPC-H Q16's aggregate shape, GroupAggregate(g;
+    COUNT(DISTINCT fk), COUNT(*), SUM v) into 64 groups in insertion order:
+    the sort path, with a value-ordered pass by (g, fk)."""
+    A = T.Aggregation
+    return T.GroupAggregate(
+        ["g"], [T.AggSpec(A.COUNT, "fk", "dfk", distinct=True),
+                T.AggSpec(A.COUNT, None, "c"), T.AggSpec(A.SUM, "v", "sv")],
+        T.ScanTable(t), T.GroupAggregateOptions(
+            estimated_result_row_count=GROUPS))
+
+
+def check_distinct_groupby(out, fg):
+    """Path (p): groups in first-occurrence order, the distinct counts
+    from a bitmap over g * 2^20 + fk (np.unique's answer), counts exact,
+    sums within rtol 1e-4 of float64."""
+    g, fk, v = fg["g"], fg["fk"], fg["v"]
+    present, first = np.unique(g[:100_000], return_index=True)
+    assert present.shape[0] == GROUPS
+    order = present[np.argsort(first)]
+    seen = np.zeros((GROUPS, 1 << 20), dtype=bool)
+    seen[g, fk] = True
+    distinct = seen.sum(axis=1)
+    counts = np.bincount(g, minlength=GROUPS)
+    sums = np.bincount(g, weights=v.astype(np.float64), minlength=GROUPS)
+    rows = out.to_pylist()
+    assert [r[0] for r in rows] == order.tolist(), "(p): groups or order"
+    assert [r[1] for r in rows] == distinct[order].tolist(), \
+        "(p): COUNT(DISTINCT fk)"
+    assert [r[2] for r in rows] == counts[order].tolist(), "(p): counts"
+    np.testing.assert_allclose([r[3] for r in rows], sums[order],
+                               rtol=SUM_RTOL)
+    return len(rows)
+
+
+def cluster_specs(T):
+    A = T.Aggregation
+    return [T.AggSpec(A.SUM, "v", "sv"), T.AggSpec(A.COUNT, None, "c"),
+            T.AggSpec(A.MIN, "v", "mn"), T.AggSpec(A.MAX, "v", "mx"),
+            T.AggSpec(A.FIRST, "v", "fv"), T.AggSpec(A.LAST, "v", "lv")]
+
+
+def clusters_merge_plan(T, tables):
+    """Path (q1): AggregateClusters(g; SUM, COUNT(*), MIN, MAX, FIRST, LAST
+    of v) over merge (d)'s plan, 2 x 50M rows sorted by (g ASC, v DESC):
+    64 clusters."""
+    return T.AggregateClusters(["g"], cluster_specs(T), merge_plan(T, tables))
+
+
+def check_clusters_merge(out, runs):
+    """Path (q1) against numpy over the runs: one cluster a g in order, its
+    count, f64 sum (rtol 1e-4 of float64), MIN, MAX; FIRST is the largest
+    v and LAST the smallest (v DESC within g); values compared with ==, so
+    -0.0 equals +0.0 as the order ties them."""
+    counts = np.zeros(GROUPS, np.int64)
+    sums = np.zeros(GROUPS)
+    mn = np.full(GROUPS, np.inf, np.float32)
+    mx = np.full(GROUPS, -np.inf, np.float32)
+    for g, v, _ in runs:  # each run is sorted by g, every g in it
+        g, v = g.cpu().numpy(), v.cpu().numpy()
+        c = np.bincount(g, minlength=GROUPS)
+        starts = np.r_[0, np.cumsum(c)[:-1]]
+        counts += c
+        sums += np.add.reduceat(v.astype(np.float64), starts)
+        mn = np.minimum(mn, np.minimum.reduceat(v, starts))
+        mx = np.maximum(mx, np.maximum.reduceat(v, starts))
+    rows = out.to_pylist()
+    assert [r[0] for r in rows] == list(range(GROUPS)), "(q1): clusters"
+    assert [r[2] for r in rows] == counts.tolist(), "(q1): counts"
+    np.testing.assert_allclose([r[1] for r in rows], sums, rtol=SUM_RTOL)
+    for name, i, want in (("MIN", 3, mn), ("MAX", 4, mx), ("FIRST", 5, mx),
+                          ("LAST", 6, mn)):
+        assert np.array_equal(np.array([r[i] for r in rows], np.float32),
+                              want), f"(q1): {name}"
+    return len(rows)
+
+
+def clusters_raw_table(T, v, dev):
+    """Path (q2)'s table: k = (row // 1000) % 64 in raw order, so each key
+    comes back every 64 clusters, and the headline's v."""
+    n = v.shape[0]
+    k = ((np.arange(n) // CLUSTER_ROWS) % GROUPS).astype(np.int32)
+    schema = T.TupleSchema.of(("k", T.INT32, False), ("v", T.FLOAT, False))
+    return T.Table.from_numpy(schema, {"k": k, "v": v}, device=dev)
+
+
+def clusters_raw_plan(T, t):
+    """Path (q2): AggregateClusters over 100M raw-order rows, 100k clusters
+    of 1000 rows; equal keys that are not adjacent are clusters of their
+    own."""
+    return T.AggregateClusters(["k"], cluster_specs(T), T.ScanTable(t))
+
+
+def check_clusters_raw(out, v):
+    """Path (q2) against numpy: one row a 1000-row block, in order."""
+    b = v.reshape(-1, CLUSTER_ROWS)
+    nb = b.shape[0]
+    assert int(out.num_rows) == nb, "(q2): cluster count"
+    cols = host_cols(out)
+    assert np.array_equal(cols["k"], np.arange(nb) % GROUPS), "(q2): keys"
+    assert np.all(cols["c"] == CLUSTER_ROWS), "(q2): counts"
+    np.testing.assert_allclose(cols["sv"], b.astype(np.float64).sum(1),
+                               rtol=SUM_RTOL)
+    for name, want in (("mn", b.min(1)), ("mx", b.max(1)), ("fv", b[:, 0]),
+                       ("lv", b[:, -1])):
+        assert np.array_equal(cols[name].view(np.int32),
+                              want.view(np.int32)), f"(q2): {name}"
+    return nb
+
+
+def clamp_plan(T, t):
+    """Path (r1): (g)'s plan with max_unique_keys_in_result = 1000."""
+    plan = groupby_hi_plan(T, t)
+    plan.options = T.GroupAggregateOptions(
+        estimated_result_row_count=HI_KEYS,
+        max_unique_keys_in_result=CLAMP_KEYS)
+    return plan
+
+
+def check_clamp(out, want):
+    """Path (r1): the first 999 groups of (g)'s result exactly, then the
+    1000th holding every later group: counts added, sums within their
+    tolerances, MAX the largest."""
+    keys, counts, sv, sd, sabs, mx = want
+    K = CLAMP_KEYS
+    assert int(out.num_rows) == K, "(r1): row count"
+    cols = host_cols(out)
+    assert np.array_equal(cols["fk"], keys[:K]), "(r1): keys"
+    assert np.array_equal(cols["c"][:K - 1], counts[:K - 1]), "(r1): counts"
+    assert cols["c"][K - 1] == counts[K - 1:].sum(), "(r1): folded count"
+    got_sv, got_sd, got_mx = cols["sv"], cols["sd"], cols["mx"]
+    np.testing.assert_allclose(got_sv[:K - 1], sv[:K - 1], rtol=SUM_RTOL)
+    np.testing.assert_allclose(got_sv[K - 1], sv[K - 1:].sum(), rtol=SUM_RTOL)
+    assert np.all(np.abs(got_sd[:K - 1] - sd[:K - 1])
+                  <= DOUBLE_RTOL * sabs[:K - 1]), "(r1): sd"
+    assert abs(got_sd[K - 1] - sd[K - 1:].sum()) <= 1e-9 * sabs[K - 1:].sum(), \
+        "(r1): folded sd"
+    assert np.array_equal(got_mx[:K - 1], mx[:K - 1]), "(r1): mx"
+    assert got_mx[K - 1] == mx[K - 1:].max(), "(r1): folded mx"
+
+
+def quota_plan(T, t, cls, enforce=False):
+    """Path (r2): (g)'s plan under a memory_quota worth 250k result rows
+    (fk 4 bytes, sv and mx 4 + 1, c 8, sd 8 + 1: 31 bytes a row)."""
+    plan = groupby_hi_plan(T, t)
+    return getattr(T, cls)(plan.group_by, plan.spec, plan.child,
+                           T.GroupAggregateOptions(
+                               memory_quota=QUOTA_ROWS * 31,
+                               enforce_quota=enforce))
+
+
+def check_best_effort(out, fk, want):
+    """Path (r2): the QUOTA_ROWS smallest keys (the first in sort order)
+    appear once each, every later row is a group of its own, and
+    re-aggregating the rows by key gives (g)'s result: counts exact, sums
+    within their tolerances, MAX exact."""
+    keys, counts, sv, sd, sabs, mx = want
+    cols = host_cols(out)
+    k = cols["fk"]
+    cut = np.sort(keys)[QUOTA_ROWS]  # the first key past the budget
+    n_after = int((fk >= cut).sum())
+    assert k.shape[0] == QUOTA_ROWS + n_after, "(r2): row count"
+    head = k[k < cut]
+    assert head.shape[0] == QUOTA_ROWS and np.unique(head).shape[0] == \
+        QUOTA_ROWS, "(r2): the first keys once each"
+    assert np.all(cols["c"][k >= cut] == 1), "(r2): later rows alone"
+    K = DIM_ROWS
+    want_c = np.bincount(keys, weights=counts, minlength=K)
+    assert np.array_equal(np.bincount(k, weights=cols["c"], minlength=K),
+                          want_c), "(r2): counts"
+    got_sv = np.bincount(k, weights=cols["sv"], minlength=K)
+    np.testing.assert_allclose(got_sv[keys], sv, rtol=SUM_RTOL)
+    got_sd = np.bincount(k, weights=cols["sd"], minlength=K)
+    assert np.all(np.abs(got_sd[keys] - sd) <= 1e-9 * sabs), "(r2): sd"
+    import torch
+
+    got_mx = torch.full((K,), -np.inf).scatter_reduce_(
+        0, torch.from_numpy(k).long(), torch.from_numpy(cols["mx"]),
+        "amax").numpy()
+    assert np.array_equal(got_mx[keys], mx), "(r2): mx"
+    return k.shape[0]
+
+
+def topn_plan(T, t):
+    """Path (s1): Limit(0, 10) over Sort(sv DESC) of (g)'s result, a top-N
+    as TPC-H Q3, Q10 and Q18 end."""
+    return T.Limit(0, 10, T.Sort([T.SortKey("sv", ascending=False)],
+                                 groupby_hi_plan(T, t)))
+
+
+def check_topn(out, want):
+    keys, _, sv, *_ = want
+    rows = out.to_pylist()
+    by_key = dict(zip(keys.tolist(), sv.tolist()))
+    assert len(rows) == 10, "(s1): rows"
+    got = [r[1] for r in rows]
+    assert got == sorted(got, reverse=True), "(s1): order"
+    for r in rows:
+        assert abs(r[1] - by_key[r[0]]) <= SUM_RTOL * abs(by_key[r[0]]), \
+            "(s1): sums"
+    assert min(got) >= np.sort(sv)[-11] * (1 - SUM_RTOL), "(s1): the top 10"
+
+
+def check_slices(torch, out, t, offset, n):
+    """The window (offset, n) of ``t``, every column bit for bit."""
+    assert int(out.num_rows) == n, "window row count"
+    for name in t.schema.names():
+        assert torch.equal(bits(out.columns[name].values[:n]),
+                           bits(t.columns[name].values[offset:offset + n])), \
+            f"window column {name}"
+
+
+def coalesce_plan(T, t):
+    """Path (s3): Coalesce of the fact with a Compute over it."""
+    return T.Coalesce(T.ScanTable(t), T.Compute(
+        [(T.col("v") * T.Const(2.0, T.FLOAT)).as_("v2")], T.ScanTable(t)))
+
+
+def check_coalesce(torch, out, fact_t):
+    """Path (s3): the fact's columns as they are, and v2 = 2 v bit for
+    bit."""
+    v = fact_t.columns["v"].values
+    assert int(out.num_rows) == fact_t.capacity, "(s3): rows"
+    assert out.columns["v"].values is v, "(s3): v moved"
+    assert torch.equal(bits(out.columns["v2"].values), bits(v * 2)), \
+        "(s3): v2"
+
+
+def generate_plan(T, n, dev):
+    """Path (s4): Generate(n) + Compute(Sequence)."""
+    return T.Compute([T.Sequence().as_("q")], T.Generate(n, device=dev))
+
+
+def rowid_plan(T, fact_t, dim_t):
+    """Path (t1): RowidMergeJoin of the fact's fk against the dim's row ids:
+    one gather of the dim's lanes."""
+    return T.RowidMergeJoin("fk", T.ScanTable(fact_t), T.ScanTable(dim_t))
+
+
+def check_rowid(torch, out, fact, dim, dev):
+    """Path (t1): every fact row with its dim row, against numpy."""
+    assert int(out.num_rows) == fact["fk"].shape[0], "(t1): rows"
+    for name, want in (("fk", fact["fk"]), ("v", fact["v"]),
+                       ("pk", dim["pk"][fact["fk"]]),
+                       ("g", dim["g"][fact["fk"]])):
+        assert torch.equal(bits(out.columns[name].values),
+                           bits(torch.from_numpy(want).to(dev))), \
+            f"(t1): {name}"
+
+
+def foreign_tables(torch, T, fact, dev):
+    """Path (t2): the fact sorted by fk (fk, v; a stable sort on the
+    card), and an ascending key column holding every other dim key
+    (500k)."""
+    fk = torch.from_numpy(fact["fk"]).to(dev)
+    fk, order = torch.sort(fk, stable=True)
+    v = torch.from_numpy(fact["v"]).to(dev)[order]
+    fs = T.TupleSchema.of(("fk", T.INT32, False), ("v", T.FLOAT, False))
+    ks = T.TupleSchema.of(("key", T.INT32, False))
+    sorted_fact = {"fk": fk.cpu().numpy(), "v": v.cpu().numpy()}
+    del fk, order, v
+    keys = np.arange(0, DIM_ROWS, 2, dtype=np.int32)
+    return (T.Table.from_numpy(fs, sorted_fact, device=dev),
+            T.Table.from_numpy(ks, {"key": keys}, device=dev), sorted_fact)
+
+
+def foreign_plan(T, fact_t, key_t):
+    """Path (t2): ForeignFilter(fk, key) of the sorted fact."""
+    return T.ForeignFilter("fk", "key", T.ScanTable(fact_t),
+                           T.ScanTable(key_t))
+
+
+def check_foreign(torch, out, sorted_fact, dev):
+    """Path (t2): the rows with an even fk, in order, fk rewritten to
+    fk // 2 (the key's row id).  Returns the row count."""
+    keep = sorted_fact["fk"] % 2 == 0
+    n = int(keep.sum())
+    assert int(out.num_rows) == n, "(t2): rows"
+    want_fk = torch.from_numpy(sorted_fact["fk"][keep] // 2).to(dev)
+    want_v = torch.from_numpy(sorted_fact["v"][keep]).to(dev)
+    assert torch.equal(out.columns["fk"].values[:n], want_fk), "(t2): fk"
+    assert torch.equal(bits(out.columns["v"].values[:n]), bits(want_v)), \
+        "(t2): v"
+    return n
+
+
+def concat_table(T, fact, dim, codes, dev, n=CONCAT_ROWS):
+    """The CONCAT path's table: the first ``n`` rows of (h)'s table, its
+    words w (STRING codes) and v, with the headline's group g."""
+    schema = T.TupleSchema.of(("g", T.INT32, False), ("w", T.STRING, False),
+                              ("v", T.FLOAT, False))
+    data = {"g": dim["g"][fact["fk"][:n]], "w": codes[:n],
+            "v": fact["v"][:n]}
+    return T.Table.from_numpy(schema, data, None,
+                              {"w": T.Dictionary(tuple(WORDS))},
+                              device=dev), data
+
+
+def concat_plan(T, t):
+    """The CONCAT path: GroupAggregate(g; CONCAT(w), CONCAT(DISTINCT w),
+    SUM v)."""
+    A = T.Aggregation
+    return T.GroupAggregate(
+        ["g"], [T.AggSpec(A.CONCAT, "w", "cw"),
+                T.AggSpec(A.CONCAT, "w", "cdw", distinct=True),
+                T.AggSpec(A.SUM, "v", "sv")], T.ScanTable(t),
+        T.GroupAggregateOptions(estimated_result_row_count=GROUPS))
+
+
+def check_concat(out, data):
+    """The CONCAT path, byte for byte against a Python join in input order
+    (DISTINCT: each word at its first place), groups in first-occurrence
+    order.  Returns the group count."""
+    parts, seen = {}, {}
+    for g, w in zip(data["g"].tolist(), data["w"].tolist()):
+        parts.setdefault(g, []).append(WORDS[w])
+        seen.setdefault(g, {}).setdefault(WORDS[w], None)
+    rows = out.to_pylist()
+    assert [r[0] for r in rows] == list(parts), "(concat): groups or order"
+    for r in rows:
+        assert r[1] == ",".join(parts[r[0]]), "(concat): CONCAT(w)"
+        assert r[2] == ",".join(seen[r[0]]), "(concat): CONCAT(DISTINCT w)"
+    return len(rows)
+
+
 def main():
     import torch
 
@@ -1943,8 +2382,7 @@ def main():
     few_t, few_g = groupby_few_table(T, fact, hi_d, dev)
     out = drive("(g) sort-path group-by 100M -> 1M keys",
                 groupby_hi_plan(T, hi_t), ("compaction",))
-    n_g = check_groupby_hi(torch, out, want_g)
-    del want_g
+    n_g = check_groupby_hi(torch, out, want_g)  # kept for (r) and (s1)
     again = T.execute(groupby_hi_plan(T, hi_t))
     assert same_bits(torch, out, again), "(g): a second run differs"
     del out, again
@@ -1960,6 +2398,7 @@ def main():
     assert kernels.launches["segment_reduce"] == 1, \
         "(h): segment_reduce must be one launch"
     n_h = check_groupby_str(out, codes, fact["v"])
+    concat_codes = codes[:CONCAT_ROWS].copy()  # the CONCAT path's words
     del out, codes
     n_i = []
     for ordered, (pushed, direct) in zip(
@@ -2013,6 +2452,104 @@ def main():
         f"rows without a fact row; FULL_OUTER {n_f[0]} rows as a multiset, "
         f"{n_f[1]} NULL-padded dim rows")
 
+    # (o)-(t) and CONCAT: the scalar, DISTINCT, cluster, clamped and quota
+    # aggregates, Limit and friends, the row-id joins
+    from supersonic_tpu_torch.ops import host
+    li = lineitem_data()
+    li_t = lineitem_table(T, li, dev)
+    out = drive("(o) Q6 ScalarAggregate", q6_plan(T, li_t), ("compaction",))
+    n_o = check_q6(out, li)
+    fg_t, fg = fact_g_table(T, fact, dim, dev)
+    out = drive("(o) scalar DISTINCT", scalar_distinct_plan(T, fg_t), ())
+    check_scalar_distinct(out, fg)
+    out = drive("(o) Q6 keeping nothing", q6_plan(T, li_t, hi=Q6_LO),
+                ("compaction",))
+    assert out.to_pylist() == [(None, 0)], "(o): an empty filter"
+    out = drive("(p) COUNT(DISTINCT) group-by",
+                distinct_groupby_plan(T, fg_t), ("compaction", "lut_gather"))
+    n_p = check_distinct_groupby(out, fg)
+    again = T.execute(distinct_groupby_plan(T, fg_t))
+    assert same_bits(torch, out, again), "(p): a second run differs"
+    del out, again
+    out = drive("(q1) AggregateClusters over merge (d)",
+                clusters_merge_plan(T, merge_t),
+                ("merge_sorted", "compaction", "lut_gather"))
+    n_q1 = check_clusters_merge(out, mruns)
+    cl_t = clusters_raw_table(T, fact["v"], dev)
+    out = drive("(q2) AggregateClusters in raw order",
+                clusters_raw_plan(T, cl_t), ("compaction", "lut_gather"))
+    n_q2 = check_clusters_raw(out, fact["v"])
+    out = drive("(r1) max_unique_keys_in_result", clamp_plan(T, hi_t),
+                ("compaction", "lut_gather"))
+    check_clamp(out, want_g)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        out = drive("(r2) best-effort memory quota",
+                    quota_plan(T, hi_t, "BestEffortGroupAggregate"),
+                    ("compaction", "lut_gather"))
+    assert any("best-effort group-by exceeded memory_quota" in str(w.message)
+               for w in seen), "(r2): no warning"
+    n_r2 = check_best_effort(out, fact["fk"], want_g)
+    del out
+    for cls, enforce in (("GroupAggregate", False),
+                         ("BestEffortGroupAggregate", True)):
+        try:
+            T.execute(quota_plan(T, hi_t, cls, enforce))
+        except T.EvaluationError as e:
+            assert "aggregate result overflow" in str(e), str(e)
+        else:
+            raise AssertionError(f"(r3): {cls} under a strict quota did not "
+                                 "raise")
+    out = drive("(s1) top 10 of (g)", topn_plan(T, hi_t),
+                ("compaction", "lut_gather"))
+    check_topn(out, want_g)
+    del want_g
+    out = drive("(s2) Limit(25M, 50M)", T.Limit(
+        LIMIT_OFFSET, LIMIT_ROWS, T.ScanTable(fact_t)), ("lut_gather",))
+    check_slices(torch, out, fact_t, LIMIT_OFFSET, LIMIT_ROWS)
+    out = drive("(s3) Coalesce", coalesce_plan(T, fact_t), ())
+    check_coalesce(torch, out, fact_t)
+    out = drive("(s4) Generate + Sequence", generate_plan(T, FACT_ROWS, dev),
+                ())
+    assert torch.equal(out.columns["q"].values,
+                       torch.arange(FACT_ROWS, device=dev)), "(s4)"
+    out = drive("(t1) RowidMergeJoin", rowid_plan(T, fact_t, dim_t),
+                ("lut_gather",))
+    check_rowid(torch, out, fact, dim, dev)
+    del out
+    fk_bad = fact_t.columns["fk"].values.clone()
+    fk_bad[FACT_ROWS // 3] = DIM_ROWS  # one fk past the dim's rows
+    bad_t = T.Table(fact_t.schema, dict(fact_t.columns, fk=T.Column(
+        fk_bad, None)), FACT_ROWS, dev)
+    try:
+        T.execute(rowid_plan(T, bad_t, dim_t))
+    except T.EvaluationError as e:
+        assert "rowid join referential integrity" in str(e), str(e)
+    else:
+        raise AssertionError("(t1): an fk out of range did not raise")
+    del fk_bad, bad_t
+    ff_t, key_t, sorted_fact = foreign_tables(torch, T, fact, dev)
+    out = drive("(t2) ForeignFilter", foreign_plan(T, ff_t, key_t),
+                ("compaction",))
+    n_t2 = check_foreign(torch, out, sorted_fact, dev)
+    del out, sorted_fact
+    cc_t, cc = concat_table(T, fact, dim, concat_codes, dev)
+    out = drive("CONCAT group-by", concat_plan(T, cc_t), ("compaction",))
+    n_cc = check_concat(out, cc)
+    del out
+    log(f"(o)-(t) match numpy: (o) Q6 {n_o} rows kept, count exact, revenue "
+        f"within {DOUBLE_RTOL} of its sum of |rev|; the scalar DISTINCT "
+        f"exact; a Filter keeping nothing gives (None, 0); (p) {n_p} groups, "
+        f"COUNT(DISTINCT fk) and counts exact, a second run bit for bit; "
+        f"(q1) {n_q1} clusters of merge (d); (q2) {n_q2} clusters in raw "
+        f"order; (r1) {CLAMP_KEYS} groups, the last holding every later "
+        f"one; (r2) {n_r2} rows, the first {QUOTA_ROWS} keys once each, "
+        f"re-aggregated to (g)'s result, with the warning; (r3) the strict "
+        f"and enforced quotas raise; (s1) the top 10; (s2) {LIMIT_ROWS} "
+        f"rows; (s3) Coalesce; (s4) Generate; (t1) every row and the "
+        f"integrity flag; (t2) {n_t2} rows; CONCAT {n_cc} groups byte for "
+        f"byte, route {host.concat_route}")
+
     # 5. times, host clock around execute (which ends in a sync)
     def median_ms(plan_fn, label, size):
         times = []
@@ -2058,6 +2595,36 @@ def main():
                                  full_cap),
               "(n) FULL_OUTER join", f"{DUP_FACT_ROWS} x {DUP_DIM_ROWS} -> "
               f"{full_cap} rows")
+    median_ms(lambda: q6_plan(T, li_t), "(o) Q6 ScalarAggregate",
+              f"{FACT_ROWS} rows")
+    median_ms(lambda: scalar_distinct_plan(T, fg_t), "(o) scalar DISTINCT",
+              f"{FACT_ROWS} rows")
+    median_ms(lambda: distinct_groupby_plan(T, fg_t),
+              "(p) COUNT(DISTINCT) group-by", f"{FACT_ROWS} -> {GROUPS} keys")
+    median_ms(lambda: clusters_merge_plan(T, merge_t),
+              "(q1) AggregateClusters over merge (d)",
+              f"2 x {MERGE_RUN_ROWS} -> {GROUPS} clusters")
+    median_ms(lambda: clusters_raw_plan(T, cl_t),
+              "(q2) AggregateClusters in raw order",
+              f"{FACT_ROWS} -> {FACT_ROWS // CLUSTER_ROWS} clusters")
+    median_ms(lambda: clamp_plan(T, hi_t), "(r1) max_unique_keys_in_result",
+              f"{FACT_ROWS} -> {CLAMP_KEYS} of {HI_KEYS} keys")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        median_ms(lambda: quota_plan(T, hi_t, "BestEffortGroupAggregate"),
+                  "(r2) best-effort memory quota",
+                  f"{FACT_ROWS} -> {n_r2} rows")
+    median_ms(lambda: topn_plan(T, hi_t), "(s1) top 10 of (g)",
+              f"{FACT_ROWS} -> 10 rows")
+    median_ms(lambda: T.Limit(LIMIT_OFFSET, LIMIT_ROWS, T.ScanTable(fact_t)),
+              "(s2) Limit", f"{LIMIT_ROWS} of {FACT_ROWS} rows")
+    median_ms(lambda: rowid_plan(T, fact_t, dim_t), "(t1) RowidMergeJoin",
+              f"{FACT_ROWS} x {DIM_ROWS}")
+    median_ms(lambda: foreign_plan(T, ff_t, key_t), "(t2) ForeignFilter",
+              f"{FACT_ROWS} x {DIM_ROWS // 2} -> {n_t2} rows")
+    median_ms(lambda: concat_plan(T, cc_t),
+              f"CONCAT group-by (route {host.concat_route})",
+              f"{CONCAT_ROWS} -> {GROUPS} groups")
     for i, label in enumerate(("(i) headline query", "(i) headline aggregate "
                                "in insertion order")):
         for j, binding in enumerate(("pushdown", "direct")):

@@ -20,7 +20,17 @@ headline tables' INNER UNIQUE join through the merge probe; ``sparse64``
 its path (l), the dup8 join over 64-bit keys past every dense budget;
 ``join_str`` its path (m), the STRING-key join of 100M probe rows against
 a 1M-row build side with a dictionary of its own; ``right_outer`` and
-``full_outer`` its path (n), those joins of dup8 (b)'s tables.  The
+``full_outer`` its path (n), those joins of dup8 (b)'s tables; ``q6``
+and ``scalar_distinct`` its path (o), TPC-H Q6's ScalarAggregate over
+100M lineitem-shaped rows and the scalar DISTINCT over the headline fact;
+``distinct`` its path (p), COUNT(DISTINCT fk) by 64 groups;
+``clusters_merge`` and ``clusters_raw`` its path (q), AggregateClusters
+over merge (d) and over 100k raw-order clusters; ``clamp`` and
+``best_effort`` its path (r), (g) under max_unique_keys_in_result and a
+best-effort memory quota; ``topn`` and ``limit`` its path (s), the top 10
+of (g) and Limit(25M, 50M) of the fact; ``rowid`` and ``foreign`` its
+path (t), RowidMergeJoin and ForeignFilter; ``concat`` its CONCAT
+group-by of 1M rows.  Several names profile one after another.  Each
 plan runs twice to warm up, then five
 runs give the host-clock median (each ends in a sync), then three runs are
 profiled with torch.profiler.  Prints the card (nvidia-smi name and power
@@ -32,13 +42,16 @@ time.
 
     python3 scripts/profile_torch_headline.py \
         [headline|dup8|merge|e|pushdown|groupby_hi|groupby_few|merge_probe|
-         sparse64|join_str|right_outer|full_outer]
+         sparse64|join_str|right_outer|full_outer|q6|scalar_distinct|
+         distinct|clusters_merge|clusters_raw|clamp|best_effort|topn|limit|
+         rowid|foreign|concat ...]
 """
 import pathlib
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -61,8 +74,62 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
         check=True).stdout.strip()
     print(f"card: {smi}")
-    dev = torch.device("cuda", 0)
-    which = sys.argv[1] if len(sys.argv) > 1 else "headline"
+    for which in sys.argv[1:] or ["headline"]:
+        profile_plan(which, torch.device("cuda", 0))
+        torch.cuda.empty_cache()
+
+
+def slice_plan(which, dev):
+    """The plan function of a path of (o)-(t) or CONCAT (chip_smoke.py)."""
+    S = chip_smoke
+    if which == "q6":
+        li_t = S.lineitem_table(T, S.lineitem_data(), dev)
+        return lambda: S.q6_plan(T, li_t)
+    if which == "clusters_merge":
+        runs = S.merge_tables(T, S.merge_data(torch, dev), dev)
+        return lambda: S.clusters_merge_plan(T, runs)
+    fact, dim = S.make_data()
+    if which in ("scalar_distinct", "distinct"):
+        fg_t = S.fact_g_table(T, fact, dim, dev)[0]
+        make = (S.scalar_distinct_plan if which == "scalar_distinct"
+                else S.distinct_groupby_plan)
+        return lambda: make(T, fg_t)
+    if which == "clusters_raw":
+        cl_t = S.clusters_raw_table(T, fact["v"], dev)
+        return lambda: S.clusters_raw_plan(T, cl_t)
+    if which in ("clamp", "best_effort", "topn"):
+        hi_t = S.groupby_hi_tables(T, fact, dev)[0]
+        if which == "clamp":
+            return lambda: S.clamp_plan(T, hi_t)
+        if which == "topn":
+            return lambda: S.topn_plan(T, hi_t)
+        return lambda: S.quota_plan(T, hi_t, "BestEffortGroupAggregate")
+    if which == "foreign":
+        ff_t, key_t, _ = S.foreign_tables(torch, T, fact, dev)
+        return lambda: S.foreign_plan(T, ff_t, key_t)
+    if which == "concat":
+        codes = np.random.default_rng(12).integers(
+            0, len(S.WORDS), S.CONCAT_ROWS).astype(np.int32)
+        cc_t = S.concat_table(T, fact, dim, codes, dev)[0]
+        return lambda: S.concat_plan(T, cc_t)
+    fs, ds = S.schemas(T)
+    fact_t = T.Table.from_numpy(fs, fact, device=dev)
+    if which == "limit":
+        return lambda: T.Limit(S.LIMIT_OFFSET, S.LIMIT_ROWS,
+                               T.ScanTable(fact_t))
+    if which == "rowid":
+        dim_t = T.Table.from_numpy(ds, dim, device=dev)
+        return lambda: S.rowid_plan(T, fact_t, dim_t)
+    sys.exit(f"profile_torch_headline: unknown plan {which!r}")
+
+
+SLICE = ("q6", "scalar_distinct", "distinct", "clusters_merge",
+         "clusters_raw", "clamp", "best_effort", "topn", "limit", "rowid",
+         "foreign", "concat")
+
+
+def earlier_plan(which, dev):
+    """The plan function of a path of the headline to (n) (chip_smoke.py)."""
     if which in ("headline", "pushdown", "groupby_hi", "groupby_few",
                  "merge_probe", "join_str"):
         fact, dim = chip_smoke.make_data()
@@ -124,6 +191,12 @@ def main():
                 out_cap)
         return chip_smoke.dup8_plan(T, fact_t, dim_t, T.JoinType.INNER, False)
 
+    return plan
+
+
+def profile_plan(which, dev):
+    plan = (slice_plan if which in SLICE else earlier_plan)(which, dev)
+    warnings.simplefilter("ignore")  # the best-effort quota's warning
     print(f"plan: {which}")
     for _ in range(WARMUPS):
         T.execute(plan())

@@ -1,9 +1,9 @@
-"""GroupAggregate: the dense path, the sort path and the aggregate pushdown.
+"""Aggregation: GroupAggregate (dense path, sort path, aggregate pushdown),
+its best-effort and hybrid variants, ScalarAggregate and AggregateClusters.
 
-Port of ``supersonic_tpu/ops/aggregate.py`` (``_dense_domain``,
-``_dense_grouped_aggregate``, ``_pass_key``, ``_grouped_aggregate``,
-``GroupAggregate.bind`` and ``_try_aggregate_pushdown``; reference:
-cursor/core/aggregate_groups.cc, column_aggregator.cc).  The result order
+Port of ``supersonic_tpu/ops/aggregate.py`` (reference: cursor/core/
+aggregate_groups.cc, aggregate_scalar.cc, aggregate_clusters.cc,
+column_aggregator.cc).  The result order
 is the reference's insertion order (first occurrence of each key), unless
 the consumer re-orders the rows anyway (Sort binds its child
 ``_unordered``).
@@ -35,9 +35,17 @@ the consumer re-orders the rows anyway (Sort binds its child
     rewrite that pregroups the probe side of an INNER or LEFT_OUTER join
     by the join key, joins the partials and aggregates them again.
 
-DISTINCT, CONCAT, ``max_unique_keys_in_result``, memory quotas and a
-group-by without keys raise ``NotImplementedError`` (ROADMAP.md queue 1
-item 12).
+The sort path also carries the options: DISTINCT SUM/COUNT ride the
+value-ordered pass and count a row only where its value code differs from
+the previous row's in the run; ``max_unique_keys_in_result`` folds the
+groups past it into its last group; a memory quota is a budget of result
+rows (strict: overflow raises; best-effort: later rows pass through as
+groups of their own); CONCAT gives each group's run id, and ``execute``
+assembles the strings on the host (``DeferredConcat``, ops/host.py);
+a group-by without keys is one group over the live rows (none on empty
+input); AggregateClusters takes runs of adjacent keys in input order
+without a base sort.  ``HybridGroupAggregate``'s spill under a memory
+quota is not ported (ROADMAP.md queue 1 item 15).
 """
 from __future__ import annotations
 
@@ -45,14 +53,16 @@ import enum
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..batch import Column, Table, gather_arrays
+from ..dictionary import DeferredDictionary
 from ..kernels import MAX_ARRAYS
 from ..kernels.compaction import compact_kernel
 from ..kernels.merge_sorted import sortable_words
 from ..schema import Attribute, SchemaError, TupleSchema
-from ..types import DataType, torch_dtype
+from ..types import DataType, physical_dtype, torch_dtype
 from .base import BindContext, BoundOperation, Operation, RunContext, not_ported
 from .keys import descending_code, group_code_columns, monotone_code
 
@@ -95,16 +105,39 @@ class AggregationSpecification:
         return self.add(AggSpec(agg, input_, output, **kw))
 
 
+def _normalize_spec(specification) -> AggregationSpecification:
+    if isinstance(specification, AggregationSpecification):
+        return specification
+    return AggregationSpecification(specification)
+
+
 @dataclass(frozen=True)
 class GroupAggregateOptions:
     """reference: aggregate.h:160-205.  ``estimated_result_row_count`` is
     the output capacity; a result with more groups raises "aggregate
-    result overflow"."""
+    result overflow".  ``max_unique_keys_in_result`` clamps the result:
+    later groups fold into the last one kept (aggregate_groups.cc:
+    501-510).  ``memory_quota`` bytes become a budget of result rows
+    (``_quota_rows``): a strict GroupAggregate with more groups raises
+    (aggregate_groups.cc:420-427); BestEffortGroupAggregate aggregates the
+    first budget of keys fully and passes every later row through as a
+    group of its own, with a warning (aggregate.h:233-246), unless
+    ``enforce_quota`` makes it strict too."""
 
     estimated_result_row_count: Optional[int] = None
     max_unique_keys_in_result: Optional[int] = None
     memory_quota: Optional[int] = None
     enforce_quota: bool = False
+
+
+def _quota_rows(memory_quota: int, out_schema: TupleSchema) -> int:
+    """A ``memory_quota`` in bytes as a budget of result rows: the quota
+    over the output row's width (each value's bytes, plus one byte for each
+    nullable column's validity)."""
+    width = 0
+    for a in out_schema:
+        width += np.dtype(physical_dtype(a.type)).itemsize + a.nullable
+    return max(1, int(memory_quota) // max(width, 1))
 
 
 def _resolve_output_attr(spec: AggSpec, schema: TupleSchema) -> Attribute:
@@ -114,8 +147,28 @@ def _resolve_output_attr(spec: AggSpec, schema: TupleSchema) -> Attribute:
     if spec.input is None:
         raise SchemaError(f"{spec.aggregation} needs an input column")
     in_attr = schema.lookup(spec.input)
+    if spec.aggregation == Aggregation.CONCAT:
+        # CONCAT of any input type is a STRING (column_aggregator.cc:
+        # 496-530, aggregation_operators.h:235)
+        if (spec.output_type or DataType.STRING) != DataType.STRING:
+            raise SchemaError("CONCAT output type must be STRING")
+        return Attribute(spec.output, DataType.STRING, nullable=True)
     return Attribute(spec.output, spec.output_type or in_attr.type,
                      nullable=True)
+
+
+def _output_dicts(cb, names, specs) -> dict:
+    """The dictionaries of an aggregate's output: the group keys', the
+    input's for a STRING/BINARY MIN/MAX/FIRST/LAST (the codes pass through
+    untransformed), and a DeferredDictionary for each CONCAT, whose codes
+    are group run ids until ``execute`` resolves the strings."""
+    out = {n: cb.dicts[n] for n in names if n in cb.dicts}
+    for s in specs:
+        if s.input is not None and s.input in cb.dicts:
+            out[s.output] = cb.dicts[s.input]
+        if s.aggregation == Aggregation.CONCAT:
+            out[s.output] = DeferredDictionary()
+    return out
 
 
 _DENSE_DOMAIN_MAX = 2048  # segment_reduce MAX_SEGMENTS
@@ -124,16 +177,22 @@ _I32_INPUTS = (DataType.FLOAT, DataType.INT32, DataType.BOOL, DataType.DATE,
                DataType.ENUM, DataType.STRING, DataType.BINARY)
 
 
-def _dense_domain(cb, names, key_attrs, specs, schema_in):
+def _dense_domain(cb, names, key_attrs, specs, schema_in, options=None):
     """(dims, K) when the group keys have a planned composite domain of at
     most 2048 slots: per key (name, attr, kmin, K_i), from the value map of
     an ENUM key, the dictionary size of a STRING/BINARY key or the planner
-    statistics of an INT32/INT64/DATE/DATETIME key.  None sends the group-by to the sort path, as the JAX package
-    does: a nullable key, a key without statistics, more slots, a 64-bit or
+    statistics of an INT32/INT64/DATE/DATETIME key.  None sends the
+    group-by to the sort path, as the JAX package does: a
+    ``max_unique_keys_in_result`` clamp, a DISTINCT or CONCAT aggregate, a
+    nullable key, a key without statistics, more slots, a 64-bit or
     DOUBLE input of SUM/MIN/MAX, or a SUM into an 8-byte output (SUM
     aggregates in its output type, which the kernel's 32-bit accumulators
     do not hold).  Every other output type is the kernel's result cast, as
     in the JAX package's dense path."""
+    if options is not None and options.max_unique_keys_in_result:
+        return None
+    if any(s.distinct for s in specs):
+        return None
     dims, K = [], 1
     for name, key_attr in zip(names, key_attrs):
         if key_attr.nullable:
@@ -161,6 +220,8 @@ def _dense_domain(cb, names, key_attrs, specs, schema_in):
         if s.aggregation in (Aggregation.COUNT, Aggregation.FIRST,
                              Aggregation.LAST):
             continue  # any type: counts, or one gather of K rows at the end
+        if s.aggregation == Aggregation.CONCAT:
+            return None
         if schema_in.lookup(s.input).type not in _I32_INPUTS:
             return None
         if (s.aggregation == Aggregation.SUM
@@ -310,12 +371,36 @@ def _dense_grouped_aggregate(t: Table, dims, specs, schema_in, out_dicts,
 
 def _pass_key(spec: AggSpec):
     """The sorted pass a spec reads: None for the stable base pass, or
-    (input, "asc" / "desc") for a value-ordered pass (MIN / MAX)."""
+    (input, "asc" / "desc") for a value-ordered pass (MIN / MAX, and a
+    DISTINCT SUM or COUNT, whose duplicates are then neighbours)."""
     if spec.aggregation == Aggregation.MIN:
         return (spec.input, "asc")
     if spec.aggregation == Aggregation.MAX:
         return (spec.input, "desc")
+    if spec.distinct and spec.aggregation in (Aggregation.SUM,
+                                              Aggregation.COUNT):
+        return (spec.input, "asc")
     return None
+
+
+@dataclass
+class DeferredConcat:
+    """The host work of one CONCAT aggregate (reference: the per-group
+    byte assembly of AggregationOperator<CONCAT>, aggregation_operators.h:
+    235-283; "," separator, NULLs skipped, an all-NULL group NULL).  The
+    output column holds group run ids, codes into ``dict_obj`` (a
+    DeferredDictionary made at bind); ``aux`` holds the device tensors the
+    host reads after the run: per row in group order ``gid``, ``vals`` and
+    ``valid`` (live and not NULL), and ``num_groups``.  ``execute``
+    resolves ``dict_obj`` from them (ops/host.py)."""
+
+    name: str
+    dict_obj: object
+    separator: str
+    distinct: bool
+    input_type: DataType
+    input_dict: object  # the input column's Dictionary, or None
+    aux: dict
 
 
 def _sorted_rows(operands, keep, num_rows, cap: int, dev):
@@ -323,7 +408,8 @@ def _sorted_rows(operands, keep, num_rows, cap: int, dev):
     rows, stably sorted by the operand tuple (most significant first), come
     first; positions past the count hold row 0.  One stable ``torch.sort``
     pass an operand, least significant first, floats by their total order
-    (NaNs last and tied, -0.0 tied with +0.0, as ``lax.sort`` orders them).
+    (NaNs last and tied, -0.0 tied with +0.0, as ``lax.sort`` orders them);
+    no operand keeps the input order.
     Live rows are ``keep``'s; without one, the first ``num_rows``, and a
     host row count sorts only those rows (the result is then that long).
     Else the compaction kernel moves the live rows to the front, in sorted
@@ -331,7 +417,7 @@ def _sorted_rows(operands, keep, num_rows, cap: int, dev):
     are replaced by row 0 here, once for every reader."""
     host_rows = keep is None and isinstance(num_rows, int)
     n = num_rows if host_rows else cap
-    perm = None
+    perm = torch.arange(n, device=dev) if not operands else None
     for op in reversed(operands):
         key = sortable_words(op[:n])
         if perm is None:
@@ -404,26 +490,77 @@ def _is_int(dtype: torch.dtype) -> bool:
     return not dtype.is_floating_point and dtype != torch.bool
 
 
+def _extreme(dtype: torch.dtype, largest: bool):
+    """MIN's (``largest``) or MAX's identity in ``dtype``."""
+    if dtype.is_floating_point:
+        return float("inf") if largest else float("-inf")
+    info = torch.iinfo(dtype)
+    return info.max if largest else info.min
+
+
+def _fold_overflow(cols: dict, specs, K: int, num_groups, cap: int):
+    """``max_unique_keys_in_result`` (aggregate_groups.cc:501-510): groups
+    K and later, in insertion order, fold into group K - 1.  SUM and COUNT
+    add, MIN and MAX fold, validity ORs; FIRST and LAST keep group K - 1's
+    value.  A K past the capacity folds nothing."""
+    if K - 1 >= cap:
+        return
+    rank = torch.arange(cap, device=num_groups.device)
+    overflow = (rank >= K) & (rank < num_groups)
+    for s in specs:
+        c = cols[s.output]
+        vals, valid = c.values.clone(), c.valid
+        agg = s.aggregation
+        v_eff = vals if valid is None else torch.where(valid, vals, 0)
+        if agg in (Aggregation.SUM, Aggregation.COUNT):
+            extra = torch.where(overflow, v_eff, 0).sum()
+            vals[K - 1] += extra.to(vals.dtype)
+        elif agg in (Aggregation.MIN, Aggregation.MAX):
+            ok = overflow if valid is None else (overflow & valid)
+            is_min = agg == Aggregation.MIN
+            pad = _extreme(vals.dtype, is_min)
+            tail = torch.where(ok, vals, pad)
+            tail = tail.amin() if is_min else tail.amax()
+            fold = torch.minimum if is_min else torch.maximum
+            vals[K - 1] = fold(vals[K - 1], tail)
+        if valid is not None and agg in (Aggregation.SUM, Aggregation.MIN,
+                                         Aggregation.MAX):
+            valid = valid.clone()
+            valid[K - 1] |= (overflow & valid).any()
+        cols[s.output] = Column(vals, valid)
+
+
 def _grouped_aggregate(t: Table, names, specs, schema_in, out_dicts,
                        out_schema, out_cap: int, rctx: RunContext,
-                       rerank: bool, keep=None):
+                       rerank: bool, keep=None, max_keys=None,
+                       pre_sorted: bool = False, soft_key_limit=None):
     """Sort-path group-by (``_grouped_aggregate`` of the JAX package, whose
     semantics it keeps; the module docstring has the design).  ``keep``
     (a fused Filter or a masked join) marks the live rows; without it, the
     first ``num_rows``.  Groups come out in first-occurrence order, or in
-    key order without ``rerank``."""
+    key order without ``rerank``.
+
+    ``pre_sorted`` (AggregateClusters): runs are adjacent equal keys in
+    input order, so equal keys that are not adjacent stay groups of their
+    own; there is no base sort, value passes sort by (run id, value), and
+    the caller passes no ``keep`` (the live rows are a prefix).
+    ``max_keys``: groups past it fold into its last group, after the
+    re-rank.  ``soft_key_limit`` (a best-effort memory quota): the first
+    that many keys in sort order aggregate fully, and every later live row
+    is a group of its own, with a warning flag."""
     dev = t.device
     cap = t.capacity
     codes = []
     for nr, c in group_code_columns(t, names):
         codes += [c] if nr is None else [nr, c]
-    perm, live_count = _sorted_rows(codes, keep, t.num_rows, cap, dev)
+    perm, live_count = _sorted_rows([] if pre_sorted else codes, keep,
+                                    t.num_rows, cap, dev)
     L = perm.shape[0]
     pos = torch.arange(L, device=dev)
     live_s = pos < live_count
     # a run starts where any code differs from the row before (NaN != NaN)
-    differs = torch.ones(L, dtype=torch.bool, device=dev)
-    if L > 1:
+    differs = pos == 0
+    if L > 1 and codes:
         same = None
         for c in codes:
             cs = c[perm]
@@ -431,17 +568,28 @@ def _grouped_aggregate(t: Table, names, specs, schema_in, out_dicts,
             same = eq if same is None else (same & eq)
         differs[1:] = ~same
     boundary = live_s & differs
+    if soft_key_limit is not None:
+        rctx.error_flags.append(
+            ("warning: best-effort group-by exceeded memory_quota; result "
+             "is partially aggregated", boundary.sum() > soft_key_limit))
+        rank = torch.cumsum(boundary, 0) - 1
+        boundary = live_s & (boundary | (rank >= soft_key_limit))
     next_starts = torch.zeros_like(boundary)
     next_starts[:-1] = boundary[1:]
     is_end = live_s & (next_starts | (pos == live_count - 1))
     num_groups = boundary.sum()
-    rctx.error_flags.append(("aggregate result overflow",
-                             num_groups > out_cap))
+    if max_keys is None and soft_key_limit is None:
+        rctx.error_flags.append(("aggregate result overflow",
+                                 num_groups > out_cap))
+    # a clamp or a best-effort quota may keep every group until the end
+    ext_cap = (cap if max_keys is not None or soft_key_limit is not None
+               else out_cap)
 
     # lanes read at each run's last and first sorted position
     ends: dict = {"pos": pos, "row": perm}
     starts: dict = {"row": perm}
     sorted_cols: dict = {}
+    vperms: dict = {}  # value-ordered pass -> its sorted rows
 
     def sorted_col(name):
         if name not in sorted_cols:
@@ -459,11 +607,81 @@ def _grouped_aggregate(t: Table, names, specs, schema_in, out_dicts,
                                      dtype=torch.int32)
         return key
 
+    def value_pass(pkey):
+        """The rows in (group, value) order: NULL values last in a run,
+        MAX by the descending code."""
+        if pkey not in vperms:
+            c = t.columns[pkey[0]]
+            vcode = monotone_code(c.values, schema_in.lookup(pkey[0]).type)
+            if pkey[1] == "desc":
+                vcode = descending_code(vcode)
+            vrank = [] if c.valid is None else [(~c.valid).to(torch.int32)]
+            if pre_sorted:
+                # the run id of each row (the base order is the input's)
+                group = [torch.cumsum(boundary, 0, dtype=torch.int32)]
+                vperms[pkey] = _sorted_rows(group + vrank + [vcode], keep,
+                                            t.num_rows, cap, dev)[0]
+            else:
+                vperms[pkey] = _sorted_rows(codes + vrank + [vcode], keep,
+                                            t.num_rows, cap, dev)[0]
+        return vperms[pkey]
+
+    dweights: dict = {}
+
+    def distinct_weight(name):
+        """(values, weight) per value-ordered position of a DISTINCT SUM
+        or COUNT of ``name``: a row weighs 1 if it is live, not NULL, and
+        its value code differs from the previous row's in the same run
+        (NaN is never equal to NaN)."""
+        if name not in dweights:
+            pv = value_pass((name, "asc"))
+            c = t.columns[name]
+            vs = c.values[pv]
+            ok = live_s if c.valid is None else (c.valid[pv] & live_s)
+            code = monotone_code(vs, schema_in.lookup(name).type)
+            dup = torch.zeros_like(ok)
+            dup[1:] = ((~boundary[1:]) & (code[1:] == code[:-1])
+                       & (ok[1:] == ok[:-1]))
+            dweights[name] = (vs, ok & ~dup)
+        return dweights[name]
+
     f64_sums = {}
+    concat_out = {}
     for s in specs:
         agg = s.aggregation
         if s.input is None:
             continue  # COUNT(*)
+        if agg == Aggregation.CONCAT:
+            # rides the stable base pass: a group's rows in input order,
+            # the reference's append order
+            vals, valid = sorted_col(s.input)
+            ok = live_s if valid is None else (valid & live_s)
+            key = ("concat", s.output)
+            ends[key] = torch.cumsum(ok, 0, dtype=torch.int32)
+            concat_out[s.output] = key
+            rctx.deferred.append(DeferredConcat(
+                name=s.output, dict_obj=out_dicts[s.output], separator=",",
+                distinct=bool(s.distinct),
+                input_type=schema_in.lookup(s.input).type,
+                input_dict=t.dicts.get(s.input),
+                aux={"gid": (torch.cumsum(boundary, 0) - 1).to(torch.int32),
+                     "vals": vals, "valid": ok, "num_groups": num_groups}))
+            continue
+        if s.distinct and agg in (Aggregation.SUM, Aggregation.COUNT):
+            dkey = ("distinct", s.input)
+            vs, w = distinct_weight(s.input)
+            if dkey not in ends:
+                ends[dkey] = torch.cumsum(w, 0, dtype=torch.int32)
+            if agg == Aggregation.SUM:
+                odt = torch_dtype(_resolve_output_attr(s, schema_in).type)
+                if _is_int(vs.dtype) and _is_int(odt):
+                    ikey = ("disum", s.input)
+                    if ikey not in ends:
+                        ends[ikey] = torch.cumsum(
+                            torch.where(w, vs.long(), 0), 0)
+                elif dkey not in f64_sums:
+                    f64_sums[dkey] = torch.where(w, vs.double(), 0.0)
+            continue
         if agg in (Aggregation.COUNT, Aggregation.SUM):
             valid_count_key(s.input)
         if agg == Aggregation.SUM:
@@ -484,19 +702,11 @@ def _grouped_aggregate(t: Table, names, specs, schema_in, out_dicts,
         elif agg in (Aggregation.MIN, Aggregation.MAX):
             pkey = _pass_key(s)
             if pkey not in starts:
-                c = t.columns[s.input]
-                vcode = monotone_code(c.values,
-                                      schema_in.lookup(s.input).type)
-                if pkey[1] == "desc":
-                    vcode = descending_code(vcode)
-                # NULL values last within the run
-                vrank = [] if c.valid is None else [(~c.valid).to(torch.int32)]
-                starts[pkey] = _sorted_rows(codes + vrank + [vcode], keep,
-                                            t.num_rows, cap, dev)[0]
+                starts[pkey] = value_pass(pkey)
 
-    e = _extract(ends, is_end, out_cap)
-    st = _extract(starts, boundary, out_cap)
-    present = torch.arange(out_cap, device=dev) < num_groups
+    e = _extract(ends, is_end, ext_cap)
+    st = _extract(starts, boundary, ext_cap)
+    present = torch.arange(ext_cap, device=dev) < num_groups
 
     def diff(x):
         """Per group, from a cumsum read at the run ends."""
@@ -532,15 +742,26 @@ def _grouped_aggregate(t: Table, names, specs, schema_in, out_dicts,
         if s.input is None:
             cols[s.output] = Column(count_all.to(odt), None)
             continue
+        if agg == Aggregation.CONCAT:
+            cols[s.output] = Column(
+                torch.arange(ext_cap, dtype=torch.int32, device=dev),
+                diff(e[concat_out[s.output]]) > 0)
+            continue
+        distinct = s.distinct and agg in (Aggregation.SUM, Aggregation.COUNT)
+        if distinct:
+            n_vals = diff(e[("distinct", s.input)])
         if agg == Aggregation.COUNT:
-            cols[s.output] = Column(count_of(s.input).to(odt), None)
+            cols[s.output] = Column(
+                (n_vals if distinct else count_of(s.input)).to(odt), None)
         elif agg == Aggregation.SUM:
-            if s.input in f64_sums:
+            skey = ("distinct", s.input) if distinct else s.input
+            if skey in f64_sums:
                 # each run added on its own in f64, rounded once to odt
-                sv = _run_sums(f64_sums[s.input], count_all)
+                sv = _run_sums(f64_sums[skey], count_all)
             else:
-                sv = diff(e[("isum", s.input)])
-            cols[s.output] = Column(sv.to(odt), count_of(s.input) > 0)
+                sv = diff(e[("disum" if distinct else "isum", s.input)])
+            cols[s.output] = Column(sv.to(odt), (n_vals if distinct
+                                                 else count_of(s.input)) > 0)
         elif agg in (Aggregation.MIN, Aggregation.MAX):
             # the run's first row in the value order, which puts NULLs
             # last: NULL only where the group holds no value (and, as in
@@ -558,14 +779,21 @@ def _grouped_aggregate(t: Table, names, specs, schema_in, out_dicts,
     if rerank:
         # insertion order: present groups by first-occurrence row
         first = torch.where(present, st["row"],
-                            L + torch.arange(out_cap, device=dev))
+                            L + torch.arange(ext_cap, device=dev))
         order = torch.sort(first).indices
         cols = {n: Column(c.values[order],
                           None if c.valid is None else c.valid[order])
                 for n, c in cols.items()}
+    n_out = num_groups.clamp(max=out_cap)
+    if max_keys is not None:
+        _fold_overflow(cols, specs, max_keys, num_groups, ext_cap)
+        n_out = num_groups.clamp(max=max_keys)
     cols = {a.name: cols[a.name] for a in out_schema}
-    return Table(out_schema, cols, num_groups.clamp(max=out_cap), dev,
-                 out_dicts, cap_hint=out_cap)
+    if ext_cap != out_cap:
+        cols = {n: Column(c.values[:out_cap],
+                          None if c.valid is None else c.valid[:out_cap])
+                for n, c in cols.items()}
+    return Table(out_schema, cols, n_out, dev, out_dicts, cap_hint=out_cap)
 
 
 class GroupAggregate(Operation):
@@ -580,13 +808,12 @@ class GroupAggregate(Operation):
     section 6).  An instance may set the attribute either way."""
 
     _pushdown_disabled = True
+    best_effort = False
 
     def __init__(self, group_by: Sequence[str], specification, child,
                  options: GroupAggregateOptions | None = None):
         self.group_by = list(group_by)
-        self.spec = (specification
-                     if isinstance(specification, AggregationSpecification)
-                     else AggregationSpecification(specification))
+        self.spec = _normalize_spec(specification)
         self.child = child
         self.options = options or GroupAggregateOptions()
 
@@ -603,14 +830,6 @@ class GroupAggregate(Operation):
                 return pushed
         opts = self.options
         specs = self.spec.specs
-        if opts.max_unique_keys_in_result or opts.memory_quota is not None:
-            not_ported("max_unique_keys_in_result and memory quotas", "12")
-        if any(s.distinct for s in specs):
-            not_ported("DISTINCT aggregation", "12")
-        if any(s.aggregation == Aggregation.CONCAT for s in specs):
-            not_ported("CONCAT aggregation", "12")
-        if not self.group_by:
-            not_ported("GroupAggregate without group keys", "12")
         inner, preds = unwrap_filters(self.child)
         # a UNIQUE join child binds masked: its keep mask (the matches for
         # INNER, the kept lhs rows for LEFT_OUTER) becomes ours; a
@@ -622,15 +841,38 @@ class GroupAggregate(Operation):
         key_attrs = [cb.schema.lookup(n) for n in names]
         agg_attrs = [_resolve_output_attr(s, cb.schema) for s in specs]
         out_schema = TupleSchema(key_attrs + agg_attrs)
-        out_dicts = {n: cb.dicts[n] for n in names if n in cb.dicts}
-        # STRING/BINARY outputs (MIN/MAX/FIRST/LAST) carry the input's
-        # dictionary: the codes pass through untransformed
-        for s in specs:
-            if s.input is not None and s.input in cb.dicts:
-                out_dicts[s.output] = cb.dicts[s.input]
+        out_dicts = _output_dicts(cb, names, specs)
         out_cap = opts.estimated_result_row_count or cb.capacity
+        max_keys = opts.max_unique_keys_in_result
+        if max_keys:
+            out_cap = min(out_cap, max_keys)
+            if any(s.aggregation == Aggregation.CONCAT for s in specs):
+                raise SchemaError(
+                    "CONCAT with max_unique_keys_in_result is not supported "
+                    "(overflow-group append order is undefined across the "
+                    "clamp)")
+        soft_limit = None
+        if opts.memory_quota is not None:
+            qrows = _quota_rows(opts.memory_quota, out_schema)
+            if self.best_effort and not opts.enforce_quota:
+                if any(s.distinct for s in specs):
+                    raise SchemaError(
+                        "DISTINCT aggregates cannot be partially aggregated "
+                        "under a best-effort memory_quota")
+                if max_keys is not None:
+                    raise SchemaError(
+                        "max_unique_keys_in_result and a best-effort "
+                        "memory_quota are mutually exclusive")
+                soft_limit = qrows
+                out_cap = cb.capacity  # later rows pass through as groups
+            else:
+                # strict: more groups raise "aggregate result overflow"
+                out_cap = min(out_cap, qrows)
         schema_in = cb.schema
-        dense = _dense_domain(cb, names, key_attrs, specs, schema_in)
+        dense = None
+        if names and soft_limit is None:
+            dense = _dense_domain(cb, names, key_attrs, specs, schema_in,
+                                  opts)
 
         def fn(rctx: RunContext) -> Table:
             if masked_join:
@@ -647,10 +889,11 @@ class GroupAggregate(Operation):
                     out_cap, K, rctx, keep=keep, ordered=not _unordered)
             return _grouped_aggregate(
                 t, names, specs, schema_in, out_dicts, out_schema, out_cap,
-                rctx, rerank=not _unordered, keep=keep)
+                rctx, rerank=not _unordered, keep=keep, max_keys=max_keys,
+                soft_key_limit=soft_limit)
 
         out_stats = ({names[0]: cb.stats[names[0]]}
-                     if names[0] in cb.stats else {})
+                     if names and names[0] in cb.stats else {})
         return BoundOperation(out_schema, out_dicts, fn, out_cap,
                               stats=out_stats)
 
@@ -870,3 +1113,174 @@ class GroupAggregate(Operation):
             out_stats[self.group_by[0]] = bound.stats[self.group_by[0]]
         return BoundOperation(out_schema, out_dicts, fn, bound.capacity,
                               stats=out_stats)
+
+
+class BestEffortGroupAggregate(GroupAggregate):
+    """Best-effort pregroup (reference: aggregate_groups.cc:989,
+    aggregate.h:233-246).  Without a ``memory_quota`` it is GroupAggregate.
+    With one (and ``enforce_quota`` False) it degrades instead of raising:
+    the first quota budget of distinct keys, in sort order, aggregate
+    fully; every later row is a partial group of its own, so the output
+    rows are correct partial aggregates but not key-unique, with the
+    warning "best-effort group-by exceeded memory_quota"."""
+
+    best_effort = True
+
+
+class HybridGroupAggregate(GroupAggregate):
+    """Disk-capable group-by (reference: HybridGroupAggregate,
+    aggregate_groups.cc:1146).  Without a ``memory_quota`` the device
+    group-by handles any cardinality, so it is exactly GroupAggregate.
+    With one, the JAX package pregroups in quota-sized chunks and spills
+    them through an external sort; that spill is not ported yet.
+    ``temporary_directory_prefix``: reference aggregate.h:311."""
+
+    def __init__(self, group_by: Sequence[str], specification, child,
+                 options: GroupAggregateOptions | None = None,
+                 temporary_directory_prefix=None):
+        super().__init__(group_by, specification, child, options)
+        self.temp_prefix = temporary_directory_prefix
+
+    def bind(self, ctx: BindContext,
+             _unordered: bool = False) -> BoundOperation:
+        if self.options.memory_quota is not None:
+            not_ported("HybridGroupAggregate under a memory_quota (its "
+                       "chunked pregroup spills through "
+                       "io/external.ExternalSorter)", "15")
+        return super().bind(ctx, _unordered)
+
+
+def _scalar_distinct(vals, valid, type_, cap: int, all_valid: bool):
+    """DISTINCT of a scalar SUM or COUNT: (values, weight) in the order of
+    one stable sort by (NULL last, value code), where a row weighs 1 if it
+    is valid and its code differs from the previous row's (NaN never
+    equals NaN; -0.0 equals +0.0).  ``all_valid`` (every row live, no
+    NULL) drops the NULL rank from the sort."""
+    code = monotone_code(vals, type_)
+    ops = [code] if all_valid else [(~valid).to(torch.int32), code]
+    perm, _ = _sorted_rows(ops, None, cap, cap, vals.device)
+    sv, ok = vals[perm], valid[perm]
+    sc = sv if code is vals else code[perm]
+    dup = torch.zeros_like(ok)
+    dup[1:] = sc[1:] == sc[:-1]
+    return sv, ok & ~dup
+
+
+class ScalarAggregate(Operation):
+    """Aggregate the whole input into exactly one row, even an empty one
+    (reference: aggregate_scalar.cc:17-58): SUM, MIN and MAX are NULL
+    without a valid input row, COUNT is never NULL, FIRST and LAST read
+    rows 0 and n - 1, CONCAT joins every row in input order.  Plain
+    ``torch`` reductions: the JAX package computes them outside any
+    kernel."""
+
+    def __init__(self, specification, child):
+        self.spec = _normalize_spec(specification)
+        self.child = child
+
+    def bind(self, ctx: BindContext) -> BoundOperation:
+        cb = self.child.bind(ctx)
+        specs = self.spec.specs
+        schema_in = cb.schema
+        out_schema = TupleSchema([_resolve_output_attr(s, schema_in)
+                                  for s in specs])
+        out_dicts = _output_dicts(cb, [], specs)
+
+        def fn(rctx: RunContext) -> Table:
+            t = cb.run(rctx)
+            live = t.row_mask()
+            dev, cap = t.device, t.capacity
+            cols = {}
+            for s in specs:
+                odt = torch_dtype(_resolve_output_attr(s, schema_in).type)
+                agg = s.aggregation
+                if agg == Aggregation.COUNT and s.input is None:
+                    cols[s.output] = Column(live.sum().to(odt).reshape(1),
+                                            None)
+                    continue
+                c = t.columns[s.input]
+                vals = c.values
+                valid = live if c.valid is None else (c.valid & live)
+                weight = valid
+                if s.distinct and agg in (Aggregation.SUM, Aggregation.COUNT):
+                    vals, weight = _scalar_distinct(
+                        vals, valid, schema_in.lookup(s.input).type, cap,
+                        c.valid is None and isinstance(t.num_rows, int)
+                        and t.num_rows == cap)
+                some = weight.any().reshape(1)
+                if agg == Aggregation.SUM:
+                    total = torch.where(weight, vals, 0).sum()
+                    cols[s.output] = Column(total.to(odt).reshape(1), some)
+                elif agg == Aggregation.COUNT:
+                    cols[s.output] = Column(weight.sum().to(odt).reshape(1),
+                                            None)
+                elif agg in (Aggregation.MIN, Aggregation.MAX):
+                    is_min = agg == Aggregation.MIN
+                    v = torch.where(weight, vals,
+                                    _extreme(vals.dtype, is_min))
+                    v = v.amin() if is_min else v.amax()
+                    cols[s.output] = Column(v.to(odt).reshape(1), some)
+                elif agg in (Aggregation.FIRST, Aggregation.LAST):
+                    n = torch.as_tensor(t.num_rows, device=dev).reshape(1)
+                    idx = (torch.zeros_like(n) if agg == Aggregation.FIRST
+                           else (n - 1).clamp(min=0))
+                    ok = n > 0
+                    if c.valid is not None:
+                        ok = ok & c.valid[idx]
+                    cols[s.output] = Column(vals[idx].to(odt), ok)
+                else:  # CONCAT: one group, the whole input in input order
+                    rctx.deferred.append(DeferredConcat(
+                        name=s.output, dict_obj=out_dicts[s.output],
+                        separator=",", distinct=bool(s.distinct),
+                        input_type=schema_in.lookup(s.input).type,
+                        input_dict=t.dicts.get(s.input),
+                        aux={"gid": torch.zeros(cap, dtype=torch.int32,
+                                                device=dev),
+                             "vals": vals, "valid": valid,
+                             "num_groups": 1}))
+                    cols[s.output] = Column(
+                        torch.zeros(1, dtype=torch.int32, device=dev),
+                        valid.any().reshape(1))
+            return Table(out_schema, cols, 1, dev, out_dicts, cap_hint=1)
+
+        return BoundOperation(out_schema, out_dicts, fn, 1)
+
+
+class AggregateClusters(Operation):
+    """Streaming aggregate over key-clustered input (reference:
+    aggregate_clusters.cc:338-646): a group is a run of adjacent equal
+    keys in input order, so equal keys that are not adjacent are groups
+    of their own; the output is in cluster order."""
+
+    def __init__(self, group_by: Sequence[str], specification, child,
+                 out_capacity: Optional[int] = None):
+        self.group_by = list(group_by)
+        self.spec = _normalize_spec(specification)
+        self.child = child
+        self.out_capacity = out_capacity
+
+    def bind(self, ctx: BindContext) -> BoundOperation:
+        cb = self.child.bind(ctx)
+        names = self.group_by
+        specs = self.spec.specs
+        key_attrs = [cb.schema.lookup(n) for n in names]
+        agg_attrs = [_resolve_output_attr(s, cb.schema) for s in specs]
+        out_schema = TupleSchema(key_attrs + agg_attrs)
+        out_dicts = _output_dicts(cb, names, specs)
+        out_cap = self.out_capacity or cb.capacity
+        schema_in = cb.schema
+
+        def fn(rctx: RunContext) -> Table:
+            return _grouped_aggregate(
+                cb.run(rctx), names, specs, schema_in, out_dicts, out_schema,
+                out_cap, rctx, rerank=False, pre_sorted=True)
+
+        return BoundOperation(out_schema, out_dicts, fn, out_cap)
+
+
+def AggregateClustersWithSpecifiedOutputBlockSize(group_by, specification,
+                                                  block_size, child):
+    """reference: aggregate.h; the block size caps the output of a view,
+    here the output capacity."""
+    return AggregateClusters(group_by, specification, child,
+                             out_capacity=int(block_size))

@@ -7,7 +7,10 @@ is no jit: PyTorch launches each operation as the function reaches it.
 Device-side error flags (0-d bool tensors) are collected while the plan
 runs and read back in ONE host sync at the end of ``execute``, which
 raises ``EvaluationError`` naming every flag that fired, with the same
-names as the JAX package.
+names as the JAX package.  The row counts that ``Spy`` nodes report ride
+the same transfer.  After it, ``execute`` resolves the deferred host work
+the plan registered (``RunContext.deferred``: the byte assembly of CONCAT
+aggregates, ops/host.py).
 """
 from __future__ import annotations
 
@@ -54,6 +57,12 @@ class RunContext:
     # (flag name, 0-d bool device tensor) pairs
     error_flags: list = field(default_factory=list)
     cancel: Optional[CancellationToken] = None
+    # host work resolved after the run (DeferredConcat records whose aux
+    # tensors execute() reads back; ops/host.py::resolve_deferred)
+    deferred: list = field(default_factory=list)
+    # (listener, name, row count) of each Spy that ran, reported after the
+    # flags' host sync
+    spies: list = field(default_factory=list)
 
     def eval_context(self, table: Table) -> EvalContext:
         return EvalContext(table, self.error_flags)
@@ -108,7 +117,9 @@ def compile_plan(op: Operation, cancel: Optional[CancellationToken] = None):
     """Bind a plan: returns (run, bound, leaves), where
     ``run(leaf_tables) -> (Table, flags, names)``: ``flags`` is a bool
     tensor with one entry per error flag, ``names`` their names.  ``run``
-    is reusable over other leaf tables of the same shapes."""
+    is reusable over other leaf tables of the same shapes; after each call
+    ``run.deferred`` and ``run.spies`` hold that run's deferred host work
+    and Spy reports (``finish`` takes them)."""
     bctx = BindContext(cancel=cancel)
     bound = op.bind(bctx)
 
@@ -120,17 +131,30 @@ def compile_plan(op: Operation, cancel: Optional[CancellationToken] = None):
             flags = torch.stack([f.reshape(()) for _, f in ctx.error_flags])
         else:
             flags = torch.zeros(0, dtype=torch.bool)
+        run.deferred, run.spies = list(ctx.deferred), list(ctx.spies)
         return out, flags, names
 
+    run.deferred, run.spies = [], []
     return run, bound, bctx.leaves
 
 
-def raise_flags(flags: torch.Tensor, names: list) -> None:
-    """The host sync: read the flags back and raise EvaluationError for
-    every one that fired ("warning:" flags only warn)."""
-    if not names:
-        return
-    host = flags.cpu().tolist()
+def raise_flags(flags: torch.Tensor, names: list, spies=()) -> None:
+    """The host sync: read the flags (and the row counts of ``spies``)
+    back in one transfer, report each Spy's count to its listener, and
+    raise EvaluationError for every flag that fired ("warning:" flags only
+    warn)."""
+    counts = [n for _, _, n in spies if not isinstance(n, int)]
+    host = []
+    if counts:
+        dev = counts[0].device
+        host = torch.cat([flags.to(dev, torch.int64)]
+                         + [c.reshape(1).to(torch.int64) for c in counts]
+                         ).cpu().tolist()
+    elif names:
+        host = flags.cpu().tolist()
+    it = iter(host[len(names):])
+    for listener, name, n in spies:
+        listener.on_result(name, n if isinstance(n, int) else next(it))
     raised = [n for n, f in zip(names, host) if f]
     for w in raised:
         if w.startswith("warning:"):
@@ -152,9 +176,22 @@ def execute(op: Operation, check_errors: bool = True,
     if cancel is not None:
         cancel.check()
     table, flags, names = run(leaves)
-    if check_errors:
-        raise_flags(flags, names)
+    finish(run, flags, names, check_errors, cancel)
     return table
+
+
+def finish(run, flags, names, check_errors: bool = True,
+           cancel: Optional[CancellationToken] = None) -> None:
+    """What ``execute`` does after the run of ``compile_plan``'s ``run``:
+    the one host sync of the flags and Spy counts, then the deferred host
+    work (CONCAT byte assembly)."""
+    if not check_errors:
+        flags, names = flags[:0], []
+    raise_flags(flags, names, run.spies)
+    if run.deferred:
+        from .host import resolve_deferred
+
+        resolve_deferred(run.deferred, cancel=cancel)
 
 
 def not_ported(what: str, item: str):

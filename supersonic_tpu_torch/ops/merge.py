@@ -14,7 +14,9 @@ version, so the CPU and the card give the same rows and no key lane is ever
 written.
 STRING/BINARY dictionaries merge at bind (``union.bind_dictionaries``) and
 each child's codes are remapped first, so codes compare as values.  Live
-counts stay on the device.
+counts stay on the device.  An order of more compare words than the
+kernel takes (``MAX_KEYS``) concatenates the children and sorts them
+once, stably (``sort_table``).
 """
 from __future__ import annotations
 
@@ -26,9 +28,8 @@ from ..batch import Column, Table
 from ..kernels.merge_sorted import (MAX_KEYS, MergeKey, compare_words,
                                     merge_sorted)
 from ..schema import SchemaError
-from .base import (BindContext, BoundOperation, Operation, RunContext,
-                   not_ported)
-from .sort import SortOrder
+from .base import BindContext, BoundOperation, Operation, RunContext
+from .sort import SortOrder, sort_table
 from .union import bind_dictionaries, remap_codes, union_schema
 
 
@@ -51,10 +52,7 @@ class MergeUnionAll(Operation):
         keys = [MergeKey(lane_of[k.name], k.ascending,
                          lane_of[k.name] + 1 if schema.lookup(k.name).nullable
                          else None) for k in self.order.keys]
-        words = compare_words(keys)
-        if words > MAX_KEYS:
-            not_ported(f"MergeUnionAll over {words} compare words (the "
-                       f"merge kernel compares {MAX_KEYS})", "13")
+        by_sort = compare_words(keys) > MAX_KEYS
         dicts, remaps = bind_dictionaries(schema, cbs)
         out_cap = sum(cb.capacity for cb in cbs)
 
@@ -71,8 +69,34 @@ class MergeUnionAll(Operation):
                                             device=t.device))
             return lanes
 
+        def sorted_concat(tables) -> Table:
+            """More compare words than the kernel takes: the children's
+            rows one after another, then one stable sort by the merge
+            order (as the JAX package's ``lax.sort`` route), so ties keep
+            (child, row) order."""
+            dev = tables[0].device
+            remapped = [remap_codes(t, remap)
+                        for t, remap in zip(tables, remaps)]
+            cols = {}
+            for a in schema:
+                parts = [r[a.name] for r in remapped]
+                cols[a.name] = Column(
+                    torch.cat([p.values for p in parts]),
+                    torch.cat([p.valid if p.valid is not None else
+                               torch.ones(p.values.shape[0],
+                                          dtype=torch.bool, device=dev)
+                               for p in parts]) if a.nullable else None)
+            rows = tables[0].num_rows
+            for t in tables[1:]:
+                rows = rows + t.num_rows
+            cat = Table(schema, cols, rows, dev, dicts, cap_hint=out_cap)
+            live = torch.cat([t.row_mask() for t in tables])
+            return sort_table(cat, self.order, pad_mask=~live)
+
         def fn(rctx: RunContext) -> Table:
             tables = [cb.run(rctx) for cb in cbs]
+            if by_sort:
+                return sorted_concat(tables)
             lanes = side(tables[0], remaps[0])
             rows, cap = tables[0].num_rows, tables[0].capacity
             for t, remap in zip(tables[1:], remaps[1:]):

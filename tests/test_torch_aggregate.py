@@ -633,13 +633,16 @@ def test_dense_or_sort_path_as_jax_chooses(name, key, nullable, spec):
 ], ids=["distinct", "concat", "max_unique_keys", "no_group_keys"])
 def test_item_12_options_still_raise(make):
     """DISTINCT, CONCAT, max_unique_keys_in_result and a group-by without
-    keys are ROADMAP.md queue 1 item 12 and raise naming it."""
+    keys (ROADMAP.md queue 1 item 12) no longer raise: each gives the JAX
+    package's rows."""
     cols = (("k", "INT32", True), ("v", "FLOAT", False))
-    _, tt = tables(J, T, cols, {"k": (np.arange(4, dtype=np.int32),
-                                      np.ones(4, bool)),
-                                "v": np.ones(4, np.float32)})
-    with pytest.raises(NotImplementedError, match="item 12"):
-        T.execute(make(T, tt))
+    jt, tt = tables(J, T, cols, {"k": (np.arange(4, dtype=np.int32) % 3,
+                                       np.ones(4, bool)),
+                                 "v": np.arange(4, dtype=np.float32) + 0.5})
+    want, got = J.execute(make(J, jt)), T.execute(make(T, tt))
+    assert [(a.name, a.type.value) for a in got.schema] == \
+        [(a.name, a.type.value) for a in want.schema]
+    assert got.to_pylist() == want.to_pylist()
 
 
 def test_more_lanes_than_one_compaction_launch_match_jax():

@@ -275,3 +275,76 @@ def test_golden_enum_binary():
                                       T.AggSpec(A.COUNT, "b", "cb")],
                          T.ScanTable(t))))
     assert_tables_match(out, _golden_out("enum_binary"))
+
+
+def test_golden_scalar_empty():
+    """A ScalarAggregate over an empty input: one row, SUM NULL, COUNT 0."""
+    (t,) = _inputs("scalar_empty")
+    A = T.Aggregation
+    out = T.execute(T.ScalarAggregate(
+        [T.AggSpec(A.SUM, "x", "x_sum"), T.AggSpec(A.COUNT, "x", "x_cnt")],
+        T.ScanTable(t)))
+    assert_tables_match(out, _golden_out("scalar_empty"))
+
+
+def test_golden_agg_clusters():
+    """AggregateClusters: the reference's streaming cluster order, so the
+    rows compare in order."""
+    (t,) = _inputs("agg_clusters")
+    A = T.Aggregation
+    out = T.execute(T.AggregateClusters(
+        ["k"], [T.AggSpec(A.SUM, "v", "sv"), T.AggSpec(A.MIN, "v", "mn"),
+                T.AggSpec(A.COUNT, "v", "c")], T.ScanTable(t)))
+    assert_tables_match(out, _golden_out("agg_clusters"))
+
+
+def test_golden_concat_agg():
+    """CONCAT of STRING and INT64 inputs, plain and DISTINCT, beside an
+    INT64 SUM: byte for byte, ordered by the key."""
+    (t,) = _inputs("concat_agg")
+    A = T.Aggregation
+    out = T.execute(T.GroupAggregate(
+        ["k"], [T.AggSpec(A.CONCAT, "s", "cs"), T.AggSpec(A.CONCAT, "v", "cv"),
+                T.AggSpec(A.CONCAT, "s", "csd", distinct=True),
+                T.AggSpec(A.SUM, "v", "sv")], T.ScanTable(t)))
+    assert_tables_match(out, _golden_out("concat_agg"), sort_by=[0])
+
+
+def test_golden_concat_float():
+    """CONCAT of FLOAT and DOUBLE inputs as SimpleFtoa/SimpleDtoa print
+    them ("%.6g"/"%.15g", again at "%.8g"/"%.17g" when they do not round
+    trip)."""
+    (t,) = _inputs("concat_float")
+    A = T.Aggregation
+    out = T.execute(T.GroupAggregate(
+        ["k"], [T.AggSpec(A.CONCAT, "f", "cf"), T.AggSpec(A.CONCAT, "d", "cd")],
+        T.ScanTable(t)))
+    assert_tables_match(out, _golden_out("concat_float"), sort_by=[0])
+
+
+def test_golden_limit():
+    (t,) = _inputs("limit")
+    out = T.execute(T.Limit(137, 4321, T.ScanTable(t)))
+    assert_tables_match(out, _golden_out("limit"))
+
+
+def test_golden_coalesce():
+    t0, t1 = _inputs("coalesce")
+    out = T.execute(T.Coalesce(T.ScanTable(t0), T.ScanTable(t1)))
+    assert_tables_match(out, _golden_out("coalesce"))
+
+
+def test_golden_rowid_join():
+    left, right = _inputs("rowid_join")
+    out = T.execute(T.RowidMergeJoin(
+        "fk", T.ScanTable(left), T.ScanTable(right),
+        lhs_projector=T.Projector([("fk", "L.fk"), ("lv", "L.lv")]),
+        rhs_projector=T.Projector([("name", "R.name"), ("w", "R.w")])))
+    assert_tables_match(out, _golden_out("rowid_join"))
+
+
+def test_golden_foreign_filter():
+    filt, inp = _inputs("foreign_filter")
+    out = T.execute(T.ForeignFilter("fk", "key", T.ScanTable(inp),
+                                    T.ScanTable(filt)))
+    assert_tables_match(out, _golden_out("foreign_filter"))

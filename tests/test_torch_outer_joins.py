@@ -240,9 +240,9 @@ def test_full_outer_marker_join_with_and_without_statistics(stats):
 @pytest.mark.parametrize("keys", [["k"], ["k", "s"]])
 def test_group_aggregate_with_keys_and_no_aggregations(keys):
     """FULL_OUTER's distinct-key group-by: group keys and no aggregation
-    (not the group-by without keys, which raises item 12) gives the JAX
-    package's distinct keys, in first-occurrence order, NULL a key of its
-    own."""
+    (not the group-by without keys, tests/test_torch_aggregate_options.py)
+    gives the JAX package's distinct keys, in first-occurrence order, NULL
+    a key of its own."""
     rng = np.random.default_rng(19)
     data = {"k": [None if rng.random() < 0.1 else int(v)
                   for v in rng.integers(0, 9, 70)],

@@ -276,16 +276,17 @@ def _counts(t):
     lambda t, d: T.HashJoin(T.JoinType.INNER, ["pk"], ["c"],
                             T.ScanTable(d), _counts(t),
                             allow_dense_lookup=False),
-    # the sort path and the widened dense path are ported; their item 12
-    # options (max_unique_keys_in_result, DISTINCT) are not
-    lambda t, d: T.GroupAggregate(["pk"], [T.AggSpec(T.Aggregation.COUNT,
-                                                     None, "c")],
-                                  T.ScanTable(d), T.GroupAggregateOptions(
-                                      max_unique_keys_in_result=100)),
+    # every group-by option of item 12 is ported but the spill of
+    # HybridGroupAggregate under a memory quota (item 15); STRING constants
+    # are item 14
+    lambda t, d: T.HybridGroupAggregate(["pk"], [T.AggSpec(
+        T.Aggregation.COUNT, None, "c")], T.ScanTable(d),
+        T.GroupAggregateOptions(memory_quota=100)),
     lambda t, d: T.GroupAggregate(["g"], [T.AggSpec(T.Aggregation.SUM, "v",
-                                                    "s", T.DOUBLE,
-                                                    distinct=True)],
-                                  T.ScanTable(d)),
+                                                    "s", T.DOUBLE)],
+                                  T.Compute([T.col("g"), T.col("v"),
+                                             T.Const("x", T.STRING).as_("w")],
+                                            T.ScanTable(d))),
 ], ids=["left_outer", "not_unique", "non_dense_group_by", "sum_widening"])
 def test_outside_the_slice_raises_not_implemented(make):
     fact, dim = headline_data(FACT, DIM)
