@@ -69,10 +69,29 @@ take the merge probe, STRING keys and the outer join types:
      values in a dictionary of its own; (n) RIGHT_OUTER and FULL_OUTER
      NOT_UNIQUE of dup8 (b)'s tables (about 50M and 56.25M rows).  Each
      is checked against numpy.  Then (e)'s three fold steps, each timed
-     with its bound and its launches
+     with its bound and its launches.  Then the aggregates and secondary
+     operators (o)-(t) and a CONCAT group-by (see their functions), and
+     the expression engine at 100M rows: (u) bench_ops.py:240-258's
+     "compute c0*(sin+exp)" and a Compute of RoundWithPrecision,
+     RoundToInt, CastSignaling, LnNulling and Abs; (v) TPC-H Q14's promo
+     revenue over (o)'s lineitem rows with a STRING p_type (the spec's 150
+     types), ScalarAggregate(SUM(If(RegexpPartialMatch(p_type, "^PROMO"),
+     rev, 0)), SUM(rev)) under a month of l_shipdate; (w) TPC-H Q12's
+     shape, a group-by of Year(l_shipdate) and l_shipmode counting
+     high-priority lines (Case over o_orderpriority) under In(l_shipmode,
+     'MAIL', 'SHIP'); (x) Year, Month, Day, Hour, Weekday, AddMonths and a
+     DateFormat under a domain over 100M instants of 1992-2000, then
+     HourLocal and DayLocal in America/New_York (checked with offsets
+     from zoneinfo, not the port's LUT); (y) the stateful golden's plan
+     with a flush about every 1000 rows; (z) Fingerprint and Hash, a
+     group-by keyed by BitwiseAnd(Hash(fk), 63), a Sort of UINT64 values
+     past 2^63, and the host render of ToString and DateFormat over 1M
+     rows.  The LUT gather is also checked and timed at this slice's two
+     call shapes (a 150-entry LUT, the 3-lane time-zone LUT)
   5. the median times of the headline query (under both bindings, and
      its aggregate in insertion order under both), of join (a), of merges
-     (d) and (e), of group-bys (g), (h) and (j) and of joins (k)-(n)
+     (d) and (e), of group-bys (g), (h) and (j), of joins (k)-(n) and of
+     the paths (o)-(z)
 
 It prints one JSON line of per-kernel results, then as its last line
 ``{"ok": true, "device": {...}}``.  It exits non-zero, and prints no
@@ -425,6 +444,44 @@ def check_lut_gather(torch, fk, dim_g):
         f"an odd-offset slice, sorted indices; generic: 8-byte lanes, 32 "
         f"lanes, a lone 1-byte lane; staged); {t}")
     return {"max_abs_err": err, **t}
+
+
+def check_lut_gather_slice(torch, fk):
+    """The LUT gather at the expression engine's two call shapes, bit for
+    bit against its plain version and timed beside ``index_select`` and
+    the byte bound: a 150-entry int32 LUT (path (v)'s p_type property LUT)
+    at 100M indices, and the 65536-entry 3-lane time-zone day LUT (path
+    (x)'s local shift, America/New_York) at 100M day indices."""
+    from supersonic_tpu_torch.exprs import tz
+    from supersonic_tpu_torch.kernels.lut_gather import (lut_gather,
+                                                         lut_gather_ref)
+
+    dev = fk.device
+    n = fk.shape[0]
+    lut150 = torch.arange(150, dtype=torch.int32, device=dev) * 7 - 300
+    idx150 = (fk % 150).to(torch.int32)
+    tzt = tz._compile(LOCAL_ZONE)
+    lanes = [torch.from_numpy(a).to(dev) for a in
+             (tzt.off_before, tzt.off_after, tzt.switch_sec)]
+    days = (fk % 3288 + (8035 - tz.DAY0)).to(torch.int32)  # 1992-2000
+    out = []
+    for name, luts, idx, k in (("150-entry int32 LUT", [lut150], idx150,
+                                150),
+                               ("3-lane time-zone LUT", lanes, days,
+                                tz.NDAYS)):
+        got = lut_gather(luts, idx, k)
+        want = lut_gather_ref(luts, idx, k)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), f"lut_gather {name}"
+        t = timings(
+            torch, lambda: lut_gather(luts, idx, k),
+            lambda: lut_gather_ref(luts, idx, k),
+            lambda: [torch.index_select(x, 0, idx) for x in luts],
+            n * 4 + sum(x.numel() * 4 for x in luts) + len(luts) * n * 4)
+        log(f"lut_gather per call shape: {name} at {n} indices, bit-exact; "
+            f"{t}")
+        out.append(t)
+    return out
 
 
 def seg_compare(torch, name, got, want, reqs, rtol=SUM_RTOL):
@@ -2206,9 +2263,645 @@ def check_concat(out, data):
     return len(rows)
 
 
+# --- paths (u)-(z): the expression engine, its types and the host render ---
+
+MATH_ROWS = FACT_ROWS          # path (u): bench_ops.py:240-258 at 100M rows
+Q14_LO = 9374                  # path (v): 1995-09-01 as DATE days
+TS_LO = 694_224_000_000_000    # path (x): 1992-01-01 00:00 UTC in us
+TS_HI = 978_307_200_000_000    # ... 2001-01-01 00:00 UTC
+LOCAL_ZONE = "America/New_York"  # the date_local golden's zone
+FLUSH_EVERY = 1000             # path (y): one flush in ~1000 rows
+RENDER_ROWS = 1_000_000        # path (z): the host render's rows
+CHECK_THREADS = 6              # host threads for inputs and numpy checks
+TRANSCENDENTAL_RTOL = 1e-12
+# TPC-H spec 4.2.2.13: p_type = one word of each syllable, 150 types
+TYPE_S1 = ("STANDARD", "SMALL", "MEDIUM", "LARGE", "ECONOMY", "PROMO")
+TYPE_S2 = ("ANODIZED", "BURNISHED", "PLATED", "POLISHED", "BRUSHED")
+TYPE_S3 = ("TIN", "NICKEL", "BRASS", "STEEL", "COPPER")
+P_TYPES = tuple(sorted(f"{a} {b} {c}" for a in TYPE_S1 for b in TYPE_S2
+                       for c in TYPE_S3))
+# TPC-H spec 4.2.3: l_shipmode and o_orderpriority
+SHIPMODES = tuple(sorted(("REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL",
+                          "FOB")))
+PRIORITIES = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW")
+
+
+def close(got, want, rtol, what):
+    """|got - want| <= rtol |want| everywhere (NaN where want is NaN)."""
+    bad = ~(np.abs(got - want) <= rtol * np.abs(want))
+    bad &= ~(np.isnan(got) & np.isnan(want))
+    assert not bad.any(), f"{what}: {int(bad.sum())} rows off, first at " \
+        f"{int(np.flatnonzero(bad)[0])}"
+
+
+def math_data(n=MATH_ROWS, seed=42):
+    """Path (u)'s columns: bench_ops.py:240-245's c0 INT32 in 0-999, c1
+    INT64 in -50..50, c2 DOUBLE in [0, 1), from default_rng(seed)."""
+    rng = np.random.default_rng(seed)
+    return {"c0": rng.integers(0, 1000, n).astype(np.int32),
+            "c1": rng.integers(-50, 51, n),
+            "c2": rng.random(n)}
+
+
+def math_table(T, data, dev):
+    """Path (u)'s table of ``math_data``."""
+    schema = T.TupleSchema.of(("c0", T.INT32, False), ("c1", T.INT64, False),
+                              ("c2", T.DOUBLE, False))
+    return T.Table.from_numpy(schema, data, device=dev)
+
+
+def math_plans(T, t):
+    """Path (u): bench_ops.py's "compute c0*(sin+exp)" (the reference's
+    operation_example.cc:44-50), then the roundings, a signaling cast, a
+    nulling log and Abs."""
+    c, C = T.col, T.Const
+    first = T.Compute(
+        [(c("c0") * (T.Sin(c("c2")) + T.Exp(c("c1")))).as_("expr")],
+        T.ScanTable(t))
+    second = T.Compute(
+        [T.RoundWithPrecision(c("c2") * C(1000), 2).as_("rp"),
+         T.RoundToInt(c("c2") * C(7) - C(3.5)).as_("ri"),
+         T.CastSignaling(T.INT32, c("c2") * C(1e6)).as_("ci"),
+         T.LnNulling(c("c2") - C(0.5)).as_("ln"),
+         T.Abs(c("c1")).as_("ab")], T.ScanTable(t))
+    return first, second
+
+
+def away(x):
+    """C++ round(): halves away from zero."""
+    return np.where(x >= 0, np.floor(x + 0.5), np.ceil(x - 0.5))
+
+
+def check_math_expr(out1, data):
+    """Path (u)'s first Compute against numpy, within 1e-12."""
+    c0, c1, c2 = data["c0"], data["c1"], data["c2"]
+    expr = out1.columns["expr"].values.cpu().numpy()
+    close(expr, c0 * (np.sin(c2) + np.exp(c1.astype(np.float64))),
+          TRANSCENDENTAL_RTOL, "(u) c0 * (sin + exp)")
+
+
+def check_math(out2, data):
+    """Path (u)'s second Compute against numpy: LnNulling within 1e-12,
+    the rest exact (RoundWithPrecision as the JAX package computes it: the
+    rounded value times the scale's reciprocal)."""
+    c1, c2 = data["c1"], data["c2"]
+    cols = {n: out2.columns[n] for n in ("rp", "ri", "ci", "ln", "ab")}
+    rp = cols["rp"].values.cpu().numpy()
+    assert np.array_equal(rp, away(c2 * 1000.0 * 100.0) * (1.0 / 100.0)), \
+        "(u) RoundWithPrecision"
+    assert np.array_equal(cols["ri"].values.cpu().numpy(),
+                          away(c2 * 7.0 - 3.5).astype(np.int64)), \
+        "(u) RoundToInt"
+    assert np.array_equal(cols["ci"].values.cpu().numpy(),
+                          np.trunc(c2 * 1e6).astype(np.int32)), \
+        "(u) CastSignaling"
+    ok = cols["ln"].valid.cpu().numpy()
+    assert np.array_equal(ok, c2 - 0.5 > 0), "(u) LnNulling NULLs"
+    close(cols["ln"].values.cpu().numpy()[ok], np.log(c2[ok] - 0.5),
+          TRANSCENDENTAL_RTOL, "(u) LnNulling")
+    assert np.array_equal(cols["ab"].values.cpu().numpy(), np.abs(c1)), \
+        "(u) Abs"
+    return int((~ok).sum())
+
+
+TEXT_WORDS = {"p_type": P_TYPES, "l_shipmode": SHIPMODES,
+              "o_orderpriority": PRIORITIES}
+
+
+def text_data(n=FACT_ROWS, seed=43):
+    """Paths (v) and (w)'s STRING codes: p_type (TPC-H 4.2.2.13's 150
+    types), l_shipmode (7 modes) and o_orderpriority (5 priorities), each
+    uniform, from default_rng(seed)."""
+    rng = np.random.default_rng(seed)
+    return {k: rng.integers(0, len(w), n).astype(np.int32)
+            for k, w in TEXT_WORDS.items()}
+
+
+def tpch_text_table(T, li_t, text, dev):
+    """Paths (v) and (w): (o)'s lineitem columns (the same tensors) with
+    the ``text_data`` columns."""
+    attrs = list(li_t.schema) + [T.Attribute(k, T.STRING, False)
+                                 for k in text]
+    cols = dict(li_t.columns)
+    dicts = {}
+    for k, codes in text.items():
+        cols[k] = T.Column(torch_from(codes, dev), None)
+        dicts[k] = T.Dictionary(TEXT_WORDS[k])
+    return T.Table(T.TupleSchema(attrs), cols, int(li_t.num_rows), dev, dicts)
+
+
+def torch_from(a, dev):
+    import torch
+
+    return torch.from_numpy(a).to(dev)
+
+
+def q14_plan(T, t):
+    """Path (v): TPC-H Q14's promo revenue (spec 2.18, 2.4.14) over a month
+    of l_shipdate."""
+    c, C = T.col, T.Const
+    start = T.ConstDate(Q14_LO)
+    rev = c("l_extendedprice") * (C(1) - c("l_discount"))
+    A = T.Aggregation
+    return T.ScalarAggregate(
+        [T.AggSpec(A.SUM, "promo", "promo_revenue"),
+         T.AggSpec(A.SUM, "rev", "revenue")],
+        T.Compute([T.If(T.RegexpPartialMatch(c("p_type"), "^PROMO"), rev,
+                        C(0.0)).as_("promo"), rev.as_("rev")],
+                  T.Filter((c("l_shipdate") >= start)
+                           & (c("l_shipdate") < T.AddMonths(start, 1)),
+                           T.ScanTable(t))))
+
+
+def check_q14(out, li, text):
+    """Path (v): both sums within 1e-12 of the kept rows' sum of |rev|.
+    Returns the kept row count."""
+    keep = (li["l_shipdate"] >= Q14_LO) & (li["l_shipdate"] < Q14_LO + 30)
+    rev = li["l_extendedprice"][keep] * (1.0 - li["l_discount"][keep])
+    promo = np.array([w.startswith("PROMO") for w in P_TYPES])
+    is_promo = promo[text["p_type"][keep]]
+    ((p, r),) = out.to_pylist()
+    scale = float(np.sum(np.abs(rev)))
+    assert abs(p - float(np.sum(np.where(is_promo, rev, 0.0)))) <= \
+        DOUBLE_RTOL * scale, "(v) promo revenue"
+    assert abs(r - float(np.sum(rev))) <= DOUBLE_RTOL * scale, "(v) revenue"
+    return int(keep.sum())
+
+
+def q12_plan(T, t):
+    """Path (w): TPC-H Q12's shape (spec 2.4.12): by year and ship mode,
+    the high-priority line count and the line count, of MAIL and SHIP
+    lines."""
+    c, C = T.col, T.Const
+    A = T.Aggregation
+    high = T.Case(c("o_orderpriority"), T.ConstInt64(0),
+                  C("1-URGENT"), T.ConstInt64(1), C("2-HIGH"),
+                  T.ConstInt64(1))
+    return T.GroupAggregate(
+        ["yr", "l_shipmode"],
+        [T.AggSpec(A.SUM, "high", "high_lines", T.INT64),
+         T.AggSpec(A.COUNT, None, "lines")],
+        T.Compute([T.Year(c("l_shipdate")).as_("yr"), c("l_shipmode"),
+                   high.as_("high")],
+                  T.Filter(T.In(c("l_shipmode"), C("MAIL"), C("SHIP")),
+                           T.ScanTable(t))))
+
+
+def check_q12(out, li, text):
+    """Path (w): every group's counts exact.  Returns the group count."""
+    mode = text["l_shipmode"]
+    keep = (mode == SHIPMODES.index("MAIL")) | (mode == SHIPMODES.index("SHIP"))
+    i, lut = day_luts(li["l_shipdate"][keep].astype(np.int64))
+    year = lut["y"][i]
+    key = (year - 1990) * 8 + mode[keep]
+    lines = np.bincount(key)
+    high = np.bincount(key, weights=text["o_orderpriority"][keep] < 2)
+    want = {(int(k) // 8 + 1990, SHIPMODES[int(k) % 8]):
+            (int(high[k]), int(lines[k])) for k in np.flatnonzero(lines)}
+    got = {(r[0], r[1]): (r[2], r[3]) for r in out.to_pylist()}
+    assert got == want, "(w) Q12 groups"
+    return len(got)
+
+
+def date_data(n=FACT_ROWS, seed=44):
+    """Path (x): n microsecond instants uniform over 1992-2000, from
+    default_rng(seed)."""
+    return np.random.default_rng(seed).integers(TS_LO, TS_HI, n)
+
+
+def date_table(T, t, dev):
+    """Path (x)'s table: ``date_data`` as a DATETIME column."""
+    return T.Table.from_numpy(T.TupleSchema.of(("t", T.DATETIME, False)),
+                              {"t": t}, device=dev)
+
+
+def dates_plan(T, t):
+    """Path (x), UTC: the fields, AddMonths(t, -1) and a month-granular
+    DateFormat under a domain (one LUT gather)."""
+    c = T.col("t")
+    return T.Compute(
+        [T.Year(c).as_("y"), T.Month(c).as_("mo"), T.Day(c).as_("d"),
+         T.Hour(c).as_("h"), T.Weekday(c).as_("wd"),
+         T.AddMonths(c, -1).as_("am"),
+         T.DateFormat(c, "%Y-%m", domain=(TS_LO, TS_HI)).as_("ym")],
+        T.ScanTable(t))
+
+
+def local_plan(T, t):
+    """Path (x), local: HourLocal and DayLocal under the bound zone."""
+    c = T.col("t")
+    return T.Compute([T.HourLocal(c).as_("h"), T.DayLocal(c).as_("d")],
+                     T.ScanTable(t))
+
+
+def day_luts(days):
+    """numpy datetime64 fields of each day from days.min() to days.max(),
+    to gather by ``days - days.min()``: year, month, day of month, the
+    same day of the month before (unclamped, as days) and the month
+    number since 1970."""
+    d0 = int(days.min())
+    span = np.arange(d0, int(days.max()) + 1).astype("datetime64[D]")
+    months = span.astype("datetime64[M]")
+    dom = (span - months.astype("datetime64[D]")).astype(np.int64) + 1
+    return days - d0, {
+        "y": span.astype("datetime64[Y]").astype(np.int64) + 1970,
+        "mo": months.astype(np.int64) % 12 + 1,
+        "d": dom,
+        "prev": (months - 1).astype("datetime64[D]").astype(np.int64)
+        + dom - 1,
+        "m": months.astype(np.int64)}
+
+
+def check_dates(out, t):
+    """Path (x), UTC, against numpy's datetime64 of each distinct day:
+    every field exact; AddMonths keeps the day of the month unclamped and
+    the time of day; DateFormat's codes are those of numpy's "YYYY-MM"
+    strings in the sorted dictionary."""
+    days = t // 86_400_000_000
+    i, lut = day_luts(days)
+    got = host_cols(out)
+    for k, what in (("y", "Year"), ("mo", "Month"), ("d", "Day")):
+        assert np.array_equal(got[k], lut[k][i]), f"(x) {what}"
+    assert np.array_equal(got["h"], (t // 3_600_000_000) % 24), "(x) Hour"
+    assert np.array_equal(got["wd"], (days + 3) % 7), "(x) Weekday"
+    tod = t - days * 86_400_000_000
+    assert np.array_equal(got["am"], lut["prev"][i] * 86_400_000_000 + tod), \
+        "(x) AddMonths"
+    words = out.dicts["ym"].values
+    code = {w: k for k, w in enumerate(words)}
+    ym = np.array([code.get(f"{m // 12 + 1970:04d}-{m % 12 + 1:02d}", -1)
+                   for m in lut["m"]])
+    assert np.array_equal(got["ym"], ym[i]), "(x) DateFormat"
+
+
+def check_local(out, t):
+    """Path (x), local: HourLocal and DayLocal against offsets from
+    zoneinfo for each distinct UTC hour of the data (New York changes
+    offset on the hour), not from the port's day LUT."""
+    import datetime
+    import zoneinfo
+
+    z = zoneinfo.ZoneInfo(LOCAL_ZONE)
+    hour = t // 3_600_000_000
+    h0 = int(hour.min())
+    offs = np.array([
+        datetime.datetime.fromtimestamp(x * 3600, z).utcoffset()
+        .total_seconds() for x in range(h0, int(hour.max()) + 1)],
+        dtype=np.int64)
+    local = t + offs[hour - h0] * 1_000_000
+    i, lut = day_luts(local // 86_400_000_000)
+    got = host_cols(out)
+    assert np.array_equal(got["h"], (local // 3_600_000_000) % 24), \
+        "(x) HourLocal"
+    assert np.array_equal(got["d"], lut["d"][i]), "(x) DayLocal"
+    return int(np.unique(offs).size)
+
+
+def stateful_data(n=FACT_ROWS, seed=45):
+    """Path (y): the stateful golden's columns at n rows: v INT64 (90%
+    valid), seq INT32 in 0-2, flush BOOL about once in FLUSH_EVERY rows."""
+    rng = np.random.default_rng(seed)
+    return {"v": (rng.integers(-10**6, 10**6, n), rng.random(n) < 0.9),
+            "seq": rng.integers(0, 3, n).astype(np.int32),
+            "flush": rng.random(n) < 1.0 / FLUSH_EVERY}
+
+
+def stateful_table(T, data, dev):
+    """Path (y)'s table of ``stateful_data``."""
+    schema = T.TupleSchema.of(("v", T.INT64, True), ("seq", T.INT32, False),
+                              ("flush", T.BOOL, False))
+    return T.Table.from_numpy(schema, data, device=dev)
+
+
+def stateful_plan(T, t):
+    """Path (y): the stateful golden's plan (tests/test_golden.py:376-395)."""
+    c = T.col
+    return T.Compute(
+        [T.Changed(c("seq")).as_("chg"), T.RunningSum(c("v")).as_("rsum"),
+         T.Smudge(c("v")).as_("smu"),
+         T.SmudgeIf(c("v"), c("flush")).as_("smuif"),
+         T.RunningMinWithFlush(c("flush"), c("v")).as_("rmin")],
+        T.ScanTable(t))
+
+
+def last_true(mask):
+    """Index of the last True at or before each row, -1 before the
+    first."""
+    return np.maximum.accumulate(np.where(mask, np.arange(mask.shape[0]),
+                                          -1))
+
+
+def check_stateful(out, data):
+    """Path (y) against numpy (prefix sums, running maxima of indices and
+    of segment-coded values): every value and NULL exact."""
+    v, ok = data["v"]
+    seq, flush = data["seq"], data["flush"]
+    n = v.shape[0]
+
+    def col(name):
+        c = out.columns[name]
+        return (c.values.cpu().numpy(),
+                None if c.valid is None else c.valid.cpu().numpy())
+
+    chg, _ = col("chg")
+    want = np.ones(n, dtype=bool)
+    want[1:] = seq[1:] != seq[:-1]
+    assert np.array_equal(chg, want), "(y) Changed"
+    rsum, rok = col("rsum")
+    assert np.array_equal(rok, np.cumsum(ok) > 0), "(y) RunningSum NULLs"
+    assert np.array_equal(rsum[rok], np.cumsum(np.where(ok, v, 0))[rok]), \
+        "(y) RunningSum"
+    last = last_true(ok)
+    smu, sok = col("smu")
+    assert np.array_equal(sok, last >= 0), "(y) Smudge NULLs"
+    assert np.array_equal(smu[sok], v[last[sok]]), "(y) Smudge"
+    keep = ~flush
+    lk = last_true(keep)
+    si, siok = col("smuif")
+    want_ok = np.where(keep, ok, (lk >= 0) & ok[np.maximum(lk, 0)])
+    assert np.array_equal(siok, want_ok), "(y) SmudgeIf NULLs"
+    want_v = np.where(keep, v, v[np.maximum(lk, 0)])
+    assert np.array_equal(si[siok], want_v[siok]), "(y) SmudgeIf"
+    # RunningMinWithFlush: segments restart after a flushed row; a running
+    # max of (segment, vmax - v) codes is the segment's running min
+    reset = np.ones(n, dtype=bool)
+    reset[1:] = flush[:-1]
+    seg = np.cumsum(reset) - 1
+    span = 2 * 10**6 + 2
+    code = seg * span + np.where(ok, 1 + (10**6 - v), 0)
+    run = np.maximum.accumulate(code) % span
+    rm, rmok = col("rmin")
+    assert np.array_equal(rmok, run > 0), "(y) RunningMinWithFlush NULLs"
+    assert np.array_equal(rm[rmok], 10**6 - (run[rmok] - 1)), \
+        "(y) RunningMinWithFlush"
+    return int(reset.sum())
+
+
+def np_mix32(x):
+    """murmur3 fmix32 in numpy uint32 arithmetic."""
+    x = x.astype(np.uint32)
+    x ^= x >> np.uint32(16)
+    x *= np.uint32(0x85EBCA6B)
+    x ^= x >> np.uint32(13)
+    x *= np.uint32(0xC2B2AE35)
+    x ^= x >> np.uint32(16)
+    return x
+
+
+def np_fold32(code):
+    """The JAX package's _fold32 in numpy: int32 codes as their low word,
+    a float32 as its bits times 31 (plus a zero residual)."""
+    if code.dtype == np.float32:
+        code = np.where(code == 0, np.float32(0), code)
+        return code.view(np.uint32) * np.uint32(31)
+    return code.astype(np.uint32)
+
+
+def hash_plans(T, t):
+    """Path (z): Fingerprint(fk, g) and Hash(v) over the headline fact with
+    its group; then a group-by keyed by a value computed from a UINT64
+    hash (BitwiseAnd(Hash(fk), 63): UINT64 & INT32 promotes to INT64)."""
+    c = T.col
+    hashes = T.Compute([T.Fingerprint(c("fk"), c("g")).as_("fp"),
+                        T.Hash(c("v")).as_("hv")], T.ScanTable(t))
+    A = T.Aggregation
+    grouped = T.GroupAggregate(
+        ["h"], [T.AggSpec(A.COUNT, None, "n")],
+        T.Compute([T.BitwiseAnd(T.Hash(c("fk")), T.Const(63)).as_("h")],
+                  T.ScanTable(t)))
+    return hashes, grouped
+
+
+def check_hashes(out, grouped, fg):
+    """Path (z) against a numpy copy of the mixers: every hash bit for bit,
+    every group's count exact."""
+    hf = np_mix32(np_fold32(fg["fk"]))
+    hg = np_mix32(np_fold32(fg["g"]))
+    fp = np_mix32(hf * np.uint32(29) + hg)
+    got = host_cols(out)
+    assert out.schema.lookup("fp").type.value == "UINT64"
+    assert np.array_equal(got["fp"], fp.astype(np.int64)), "(z) Fingerprint"
+    assert np.array_equal(got["hv"],
+                          np_mix32(np_fold32(fg["v"])).astype(np.int64)), \
+        "(z) Hash(v)"
+    assert grouped.schema.lookup("h").type.value == "INT64"
+    h = (hf & np.uint32(63)).astype(np.int64)
+    want = np.bincount(h, minlength=64)
+    rows = grouped.to_pylist()
+    assert {k: n for k, n in rows} == {k: int(want[k]) for k in
+                                       np.flatnonzero(want)}, "(z) group-by"
+    return len(rows)
+
+
+def u64_data(n=FACT_ROWS, seed=46):
+    """Path (z)'s sort input: n UINT64 values uniform over [0, 2^64) (half
+    of them past 2^63)."""
+    return np.random.default_rng(seed).integers(0, 2**64, n, dtype=np.uint64)
+
+
+def u64_table(T, u, dev):
+    """Path (z)'s sort table: ``u64_data`` and each value's row number."""
+    schema = T.TupleSchema.of(("u", T.UINT64, False), ("i", T.INT32, False))
+    return T.Table.from_numpy(schema, {"u": u, "i": np.arange(
+        u.shape[0], dtype=np.int32)}, device=dev)
+
+
+def check_u64_sort(out, u):
+    """Path (z)'s sort: unsigned order, and each row the input row its
+    number names (so a permutation of the input)."""
+    n = u.shape[0]
+    got = out.to_numpy()
+    su, si = got["u"], got["i"]
+    assert su.dtype == np.uint64 and np.all(su[1:] >= su[:-1]), \
+        "(z) UINT64 sort order"
+    assert np.array_equal(u[si], su), "(z) UINT64 sort rows"
+    assert np.bincount(si, minlength=n).max() == 1, "(z) sort permutation"
+    return int((su >= 2**63).sum())
+
+
+def render_table(T, fact, t, dev, n=RENDER_ROWS):
+    """Path (z)'s host render: the first n values of the headline's v and
+    of (x)'s instants."""
+    schema = T.TupleSchema.of(("v", T.FLOAT, False), ("t", T.DATETIME, False))
+    data = {"v": fact["v"][:n], "t": t[:n]}
+    return T.Table.from_numpy(schema, data, device=dev), data
+
+
+def render_plan(T, t):
+    """ToString(v) and DateFormat(t) without a domain: rendered per row on
+    the host after the run (DeferredRender)."""
+    return T.Compute([T.ToString(T.col("v")).as_("sv"),
+                      T.DateFormat(T.col("t"), "%Y/%m/%d %a").as_("st")],
+                     T.ScanTable(t))
+
+
+def np_ftoa(f):
+    """SimpleFtoa: "%.6g", again at "%.8g" where it does not round trip."""
+    d = f.astype(np.float64).tolist()
+    s6 = ["%.6g" % x for x in d]
+    back = np.array(s6, dtype=object).astype(np.float64).astype(np.float32)
+    return [a if b == x else "%.8g" % w
+            for a, b, x, w in zip(s6, back.tolist(), f.tolist(), d)]
+
+
+def check_render(out, data):
+    """Path (z)'s render byte for byte on every row: ToString(FLOAT) as
+    SimpleFtoa prints, DateFormat as numpy's "%Y/%m/%d %a" of each
+    distinct day."""
+    got = out.to_numpy()
+    sv, st = got["sv"], got["st"]
+    assert sv.tolist() == np_ftoa(data["v"]), "(z) ToString(v)"
+    days = data["t"] // 86_400_000_000
+    d0 = int(days.min())
+    span = np.arange(d0, int(days.max()) + 1)
+    names = np.array(["Mon", "Tue", "Wed", "Thu", "Fri", "Sat", "Sun"])
+    words = np.char.add(np.char.add(np.char.replace(
+        np.datetime_as_string(span.astype("datetime64[D]")), "-", "/"), " "),
+        names[(span + 3) % 7])
+    assert st.tolist() == words[days - d0].tolist(), "(z) DateFormat"
+    return sv.shape[0]
+
+
+RENDER_ROUTE = ("host: one rendering a distinct value (a float's bits, "
+                "a date format's bucket), numpy and Python")
+
+
+def to_host(T, out):
+    """``out``'s live rows copied into a Table on the host, for a check on
+    another thread."""
+    n = int(out.num_rows)
+    cols = {k: T.Column(c.values[:n].cpu(),
+                        None if c.valid is None else c.valid[:n].cpu())
+            for k, c in out.columns.items()}
+    return T.Table(out.schema, cols, n, "cpu", out.dicts)
+
+
+def slice_phases(T, dev, drive, li, li_t, fact, fg_t, fg):
+    """Paths (u)-(z), each from zeroed launch counters and against numpy.
+    The inputs are made and the numpy checks run on host threads while
+    the card runs the next path (numpy leaves the GIL in its loops); each
+    path's result is copied to the host before the next path starts.
+    Returns (median plans, the summary line)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from supersonic_tpu_torch import kernels
+
+    start = time.perf_counter()
+    pool = ThreadPoolExecutor(max_workers=CHECK_THREADS)
+    made = {k: pool.submit(fn) for k, fn in (
+        ("u", math_data), ("vw", text_data), ("x", date_data),
+        ("y", stateful_data), ("z", u64_data))}
+    checks = {}
+
+    def check(name, fn, *args):
+        def run():
+            t0 = time.perf_counter()
+            return fn(*args), time.perf_counter() - t0
+        checks[name] = pool.submit(run)
+
+    md = made["u"].result()
+    m_t = math_table(T, md, dev)
+    first, second = math_plans(T, m_t)
+    out1 = to_host(T, drive("(u) Compute c0 * (sin + exp)", first, ()))
+    out2 = to_host(T, drive("(u) Compute roundings, cast, LnNulling, Abs",
+                            second, ()))
+    check("u expr", check_math_expr, out1, md)
+    check("u", check_math, out2, md)
+    del out1, out2, md
+    text = made["vw"].result()
+    tx_t = tpch_text_table(T, li_t, text, dev)
+    out = drive("(v) TPC-H Q14 promo revenue", q14_plan(T, tx_t),
+                ("compaction", "lut_gather"))
+    check("v", check_q14, to_host(T, out), li, text)
+    out = drive("(w) TPC-H Q12 shape", q12_plan(T, tx_t),
+                ("compaction", "lut_gather"))
+    w_route = ("dense (segment_reduce)" if kernels.launches[
+        "segment_reduce"] else "sort path")
+    check("w", check_q12, to_host(T, out), li, text)
+    del out, text
+    ts = made["x"].result()
+    d_t = date_table(T, ts, dev)
+    out = drive("(x) dates in UTC", dates_plan(T, d_t), ("lut_gather",))
+    check("x UTC", check_dates, to_host(T, out), ts)
+    T.set_local_timezone(LOCAL_ZONE)  # raises if the zone cannot load
+    try:
+        out = drive(f"(x) HourLocal, DayLocal in {LOCAL_ZONE}",
+                    local_plan(T, d_t), ("lut_gather",))
+    finally:
+        T.set_local_timezone(None)
+    check("x local", check_local, to_host(T, out), ts)
+    sd = made["y"].result()
+    s_t = stateful_table(T, sd, dev)
+    out = drive("(y) stateful scans", stateful_plan(T, s_t),
+                ("compaction", "lut_gather"))
+    check("y", check_stateful, to_host(T, out), sd)
+    del sd
+    hashes, grouped = hash_plans(T, fg_t)
+    out = to_host(T, drive("(z) Fingerprint and Hash", hashes, ()))
+    gout = to_host(T, drive("(z) group-by of a UINT64 hash", grouped, ()))
+    z_route = ("dense (segment_reduce)" if kernels.launches[
+        "segment_reduce"] else "sort path")
+    check("z hashes", check_hashes, out, gout, fg)
+    u = made["z"].result()
+    u_t = u64_table(T, u, dev)
+    out = drive("(z) Sort of a UINT64 column", T.Sort(["u"], T.ScanTable(u_t)),
+                ("lut_gather",))
+    check("z sort", check_u64_sort, to_host(T, out), u)
+    del u
+    r_t, rd = render_table(T, fact, ts, dev)
+    out = drive("(z) ToString and DateFormat, host render",
+                render_plan(T, r_t), ())
+    check("z render", check_render, to_host(T, out), rd)
+    del out, rd, ts
+    pool.shutdown()
+    got = {k: f.result() for k, f in checks.items()}
+    n_null, n_v, n_w, n_off, n_seg, n_z, n_big, n_r = (
+        got[k][0] for k in ("u", "v", "w", "x local", "y", "z hashes",
+                            "z sort", "z render"))
+    log(f"(u)-(z): {time.perf_counter() - start:.1f} s on the host clock "
+        f"(inputs, first runs and numpy checks); the checks' own s, on "
+        f"{CHECK_THREADS} threads: "
+        + ", ".join(f"{k} {v[1]:.1f}" for k, v in got.items()))
+    summary = (
+        f"(u)-(z) match numpy: (u) {MATH_ROWS} rows, sin/exp/ln within "
+        f"{TRANSCENDENTAL_RTOL}, the roundings and the cast exact, "
+        f"{n_null} NULLs of LnNulling; (v) Q14 over {n_v} rows; "
+        f"(w) Q12 {n_w} groups exact, route {w_route}; (x) UTC fields, "
+        f"AddMonths and DateFormat exact, {LOCAL_ZONE} hour and day exact "
+        f"({n_off} offsets); (y) every stateful column exact, {n_seg} "
+        f"flush segments; (z) hashes bit for bit, {n_z} groups, route "
+        f"{z_route}; the UINT64 sort ({n_big} values past 2^63) in order; "
+        f"{n_r} rows rendered byte for byte, route {RENDER_ROUTE}")
+    medians = [
+        (lambda: math_plans(T, m_t)[0], "(u) Compute c0 * (sin + exp)",
+         f"{MATH_ROWS} rows"),
+        (lambda: math_plans(T, m_t)[1], "(u) Compute roundings and friends",
+         f"{MATH_ROWS} rows"),
+        (lambda: q14_plan(T, tx_t), "(v) TPC-H Q14", f"{FACT_ROWS} rows"),
+        (lambda: q12_plan(T, tx_t), f"(w) TPC-H Q12 ({w_route})",
+         f"{FACT_ROWS} rows"),
+        (lambda: dates_plan(T, d_t), "(x) dates in UTC", f"{FACT_ROWS} rows"),
+        (lambda: local_plan(T, d_t),
+         f"(x) HourLocal, DayLocal in {LOCAL_ZONE}", f"{FACT_ROWS} rows"),
+        (lambda: stateful_plan(T, s_t), "(y) stateful scans",
+         f"{FACT_ROWS} rows"),
+        (lambda: hash_plans(T, fg_t)[0], "(z) Fingerprint and Hash",
+         f"{FACT_ROWS} rows"),
+        (lambda: hash_plans(T, fg_t)[1], f"(z) hash group-by ({z_route})",
+         f"{FACT_ROWS} rows"),
+        (lambda: T.Sort(["u"], T.ScanTable(u_t)), "(z) UINT64 Sort",
+         f"{FACT_ROWS} rows"),
+        (lambda: render_plan(T, r_t),
+         f"(z) host render ({RENDER_ROUTE})",
+         f"{RENDER_ROWS} rows"),
+    ]
+    return medians, summary
+
+
 def main():
     import torch
 
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs only on a GPU",
               file=sys.stderr)
@@ -2244,10 +2937,13 @@ def main():
     results = {
         "compaction": check_compaction(torch, fk, v, keep),
         "lut_gather": check_lut_gather(torch, fk, dim_g),
+    }
+    check_lut_gather_slice(torch, fk)
+    results.update({
         "segment_reduce": check_segment_reduce(torch, all_ids, v, keep),
         "segment_reduce_small": check_segment_reduce_small(torch, all_ids, v),
         "spread": check_spread(torch, torch.from_numpy(dfact["v"]).to(dev)),
-    }
+    })
     del fk, v, dim_g, keep, all_ids
     mruns = merge_data(torch, dev)
     results["merge_sorted"] = check_merge_sorted(torch, mruns)
@@ -2550,6 +3246,11 @@ def main():
         f"integrity flag; (t2) {n_t2} rows; CONCAT {n_cc} groups byte for "
         f"byte, route {host.concat_route}")
 
+    # (u)-(z): the expression engine and its types
+    slice_medians, slice_summary = slice_phases(T, dev, drive, li, li_t,
+                                                fact, fg_t, fg)
+    log(slice_summary)
+
     # 5. times, host clock around execute (which ends in a sync)
     def median_ms(plan_fn, label, size):
         times = []
@@ -2625,6 +3326,10 @@ def main():
     median_ms(lambda: concat_plan(T, cc_t),
               f"CONCAT group-by (route {host.concat_route})",
               f"{CONCAT_ROWS} -> {GROUPS} groups")
+    for plan_fn, label, size in slice_medians:
+        T.set_local_timezone(LOCAL_ZONE if "Local" in label else None)
+        median_ms(plan_fn, label, size)
+    T.set_local_timezone(None)
     for i, label in enumerate(("(i) headline query", "(i) headline aggregate "
                                "in insertion order")):
         for j, binding in enumerate(("pushdown", "direct")):
@@ -2647,6 +3352,8 @@ def main():
         "merge_sorted": ("supersonic_tpu_torch/csrc/merge_sorted.cu",
                          "supersonic_tpu/kernels/merge_sorted.py:272"),
     }
+    log(f"smoke: {time.perf_counter() - start:.1f} s on the host clock, "
+        f"build included")
     print(smi)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": meta[k][0],

@@ -30,7 +30,14 @@ over merge (d) and over 100k raw-order clusters; ``clamp`` and
 best-effort memory quota; ``topn`` and ``limit`` its path (s), the top 10
 of (g) and Limit(25M, 50M) of the fact; ``rowid`` and ``foreign`` its
 path (t), RowidMergeJoin and ForeignFilter; ``concat`` its CONCAT
-group-by of 1M rows.  Several names profile one after another.  Each
+group-by of 1M rows; and the expression engine's paths (u)-(z):
+``u_math`` and ``u_round`` the two Computes of (u) over 100M rows,
+``v_q14`` and ``w_q12`` TPC-H Q14's and Q12's shapes over (o)'s lineitem
+rows, ``x_utc`` and ``x_local`` the date fields of (x) in UTC and in
+America/New_York, ``y_stateful`` the stateful scans of (y), ``z_hash``,
+``z_groupby`` and ``z_sort`` the hashes, the hash-keyed group-by and the
+UINT64 Sort of (z), and ``z_render`` its host render of 1M rows.  Several
+names profile one after another.  Each
 plan runs twice to warm up, then five
 runs give the host-clock median (each ends in a sync), then three runs are
 profiled with torch.profiler.  Prints the card (nvidia-smi name and power
@@ -44,7 +51,8 @@ time.
         [headline|dup8|merge|e|pushdown|groupby_hi|groupby_few|merge_probe|
          sparse64|join_str|right_outer|full_outer|q6|scalar_distinct|
          distinct|clusters_merge|clusters_raw|clamp|best_effort|topn|limit|
-         rowid|foreign|concat ...]
+         rowid|foreign|concat|u_math|u_round|v_q14|w_q12|x_utc|x_local|
+         y_stateful|z_hash|z_groupby|z_sort|z_render ...]
 """
 import pathlib
 import statistics
@@ -123,6 +131,41 @@ def slice_plan(which, dev):
     sys.exit(f"profile_torch_headline: unknown plan {which!r}")
 
 
+def expr_plan(which, dev):
+    """The plan function of a path of (u)-(z) (chip_smoke.py)."""
+    S = chip_smoke
+    if which in ("u_math", "u_round"):
+        m_t = S.math_table(T, S.math_data(), dev)
+        return lambda: S.math_plans(T, m_t)[which == "u_round"]
+    if which in ("v_q14", "w_q12"):
+        li = S.lineitem_data()
+        tx_t = S.tpch_text_table(T, S.lineitem_table(T, li, dev),
+                                 S.text_data(), dev)
+        make = S.q14_plan if which == "v_q14" else S.q12_plan
+        return lambda: make(T, tx_t)
+    if which in ("x_utc", "x_local", "z_render"):
+        ts = S.date_data()
+        d_t = S.date_table(T, ts, dev)
+        if which == "z_render":
+            r_t = S.render_table(T, S.make_data()[0], ts, dev)[0]
+            return lambda: S.render_plan(T, r_t)
+        if which == "x_local":
+            T.set_local_timezone(S.LOCAL_ZONE)
+            return lambda: S.local_plan(T, d_t)
+        return lambda: S.dates_plan(T, d_t)
+    if which == "y_stateful":
+        s_t = S.stateful_table(T, S.stateful_data(), dev)
+        return lambda: S.stateful_plan(T, s_t)
+    if which == "z_sort":
+        u_t = S.u64_table(T, S.u64_data(), dev)
+        return lambda: T.Sort(["u"], T.ScanTable(u_t))
+    fact, dim = S.make_data()
+    fg_t = S.fact_g_table(T, fact, dim, dev)[0]
+    return lambda: S.hash_plans(T, fg_t)[which == "z_groupby"]
+
+
+EXPRS = ("u_math", "u_round", "v_q14", "w_q12", "x_utc", "x_local",
+         "y_stateful", "z_hash", "z_groupby", "z_sort", "z_render")
 SLICE = ("q6", "scalar_distinct", "distinct", "clusters_merge",
          "clusters_raw", "clamp", "best_effort", "topn", "limit", "rowid",
          "foreign", "concat")
@@ -195,7 +238,8 @@ def earlier_plan(which, dev):
 
 
 def profile_plan(which, dev):
-    plan = (slice_plan if which in SLICE else earlier_plan)(which, dev)
+    plan = (expr_plan if which in EXPRS else slice_plan if which in SLICE
+            else earlier_plan)(which, dev)
     warnings.simplefilter("ignore")  # the best-effort quota's warning
     print(f"plan: {which}")
     for _ in range(WARMUPS):

@@ -23,8 +23,8 @@ result outgrows its planned capacity raises the same error flag
 
 Tables built on the host (``from_data``, ``from_numpy``) carry planner
 statistics computed from the host arrays before the upload: per INT32,
-INT64, DATE, DATETIME and ENUM column (min, max), and the columns whose
-values are the row position plus a constant (dense primary keys).
+INT64, UINT32, DATE, DATETIME and ENUM column (min, max), and the columns
+whose values are the row position plus a constant (dense primary keys).
 ``ScanTable`` hands them to the planner, so bind never reads the device.
 """
 from __future__ import annotations
@@ -36,12 +36,14 @@ import torch
 
 from .dictionary import encode
 from .schema import SchemaError, TupleSchema
-from .types import (DataType, check_column_type, is_variable_length,
-                    physical_dtype, torch_dtype)
+from .types import (DataType, check_column_type, from_carrier,
+                    is_variable_length, physical_dtype, to_carrier,
+                    torch_dtype)
 
-# columns with host (min, max) statistics: the integer-valued types
-_STAT_TYPES = (DataType.INT32, DataType.INT64, DataType.DATE,
-               DataType.DATETIME, DataType.ENUM)
+# columns with host (min, max) statistics: the JAX package's list
+# (supersonic_tpu/ops/scan.py::table_stats)
+_STAT_TYPES = (DataType.INT32, DataType.INT64, DataType.UINT32,
+               DataType.DATE, DataType.DATETIME, DataType.ENUM)
 
 
 class Column(NamedTuple):
@@ -152,6 +154,7 @@ class Table:
         columns = {}
         for a in schema:
             vals, valid = host[a.name]
+            vals = to_carrier(vals, a.type)
             if cap == n:
                 t = torch.from_numpy(vals).to(device, copy=True)
             else:
@@ -223,9 +226,7 @@ class Table:
         out: dict[str, np.ndarray] = {}
         for attr in self.schema:
             col = self.columns[attr.name]
-            vals = col.values[:n].cpu().numpy()
-            if attr.type == DataType.UINT64:
-                vals = vals.view(np.uint64)
+            vals = from_carrier(col.values[:n].cpu().numpy(), attr.type)
             if attr.type in (DataType.STRING, DataType.BINARY):
                 decoded = self.dicts[attr.name].decode(vals)
                 if col.valid is not None:

@@ -32,11 +32,12 @@ class Dictionary:
         return len(self.values)
 
     def decode(self, codes: np.ndarray) -> np.ndarray:
-        out = np.empty(len(codes), dtype=object)
-        vals = self.values
-        for i, c in enumerate(codes):
-            out[i] = vals[int(c)] if 0 <= int(c) < len(vals) else None
-        return out
+        """The value of each code, None where a code is out of range."""
+        n = len(self.values)
+        vals = np.empty(n + 1, dtype=object)
+        vals[:n] = self.values
+        c = np.asarray(codes).astype(np.int64)
+        return vals[np.where((c >= 0) & (c < n), c, n)]
 
     def lookup(self, value) -> int:
         """Code for value, or -1 if absent."""

@@ -9,7 +9,8 @@ in the reference's error policies:
 Integer division truncates toward zero, as C++ does.  No row can trap: a
 zero divisor and ``INT_MIN / -1`` never reach the division, and every row
 gets the value the JAX package gives it (``INT_MIN / -1`` is ``INT_MIN``,
-``INT_MIN % -1`` is 0).
+``INT_MIN % -1`` is 0).  A UINT32 result wraps modulo 2^32 and UINT64
+division and modulus are unsigned (types.py carries both in int64 lanes).
 """
 from __future__ import annotations
 
@@ -18,9 +19,10 @@ from typing import Callable
 import torch
 
 from ..schema import Attribute
-from ..types import DataType, common_numeric_type, is_integer, torch_dtype
+from ..types import (DataType, common_numeric_type, convert, is_integer,
+                     u64_divmod, wrap_u32)
 from .base import (BoundExpression, EvalContext, Expression, ExprValue,
-                   expr_name, merge_valid, wrap)
+                   expr_name, fold_constants, merge_valid, wrap)
 
 
 class _BinaryNumeric(Expression):
@@ -42,21 +44,24 @@ class _BinaryNumeric(Expression):
         common = common_numeric_type(lb.type, rb.type)
         result_type = (self.result_type_fn(common)
                        if self.result_type_fn else common)
-        dt = torch_dtype(result_type)
         name = expr_name(self.op_name, [lb, rb])
         outer = self
 
         def fn(ctx: EvalContext) -> ExprValue:
             lv = lb.evaluate(ctx)
             rv = rb.evaluate(ctx)
-            a = lv.values.to(dt)
-            b = rv.values.to(dt)
+            a = convert(lv.values, lb.type, result_type)
+            b = convert(rv.values, rb.type, result_type)
             valid = merge_valid(lv.valid, rv.valid)
             values, extra_valid = outer.compute(a, b, ctx, valid, result_type)
+            if result_type == DataType.UINT32:
+                values = wrap_u32(values)
             return ExprValue(values, merge_valid(valid, extra_valid))
 
         nullable = lb.nullable or rb.nullable or self._adds_nulls()
-        return BoundExpression(Attribute(name, result_type, nullable), fn)
+        return fold_constants(
+            BoundExpression(Attribute(name, result_type, nullable), fn),
+            [lb, rb])
 
     def _adds_nulls(self) -> bool:
         return False
@@ -127,10 +132,14 @@ def _trunc_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 class _IntSafeDiv:
     @staticmethod
-    def div(a, b, integer: bool):
+    def div(a, b, integer: bool, u64: bool = False):
         """(quotient, zero divisor): the JAX package's values row for row,
-        a zero divisor included (0, or 1 for a negative dividend)."""
+        a zero divisor included (0, or 1 for a negative signed dividend);
+        ``u64``: UINT64 bits, divided unsigned."""
         zero = b == 0
+        if u64:
+            q = u64_divmod(a, torch.where(zero, 1, b))[0]
+            return torch.where(zero, 0, q), zero
         if integer:
             q = _trunc_div(a, torch.where(zero, 1, b))
             return torch.where(zero, (a < 0).to(q.dtype), q), zero
@@ -142,7 +151,8 @@ class CppDivideSignaling(_BinaryNumeric):
     op_name = "CPP_DIVIDE_SIGNALING"
 
     def compute(self, a, b, ctx, valid, rt):
-        q, zero = _IntSafeDiv.div(a, b, is_integer(rt))
+        q, zero = _IntSafeDiv.div(a, b, is_integer(rt),
+                                  rt == DataType.UINT64)
         ctx.flag_error("division by zero",
                        zero if valid is None else (zero & valid))
         return q, None
@@ -152,17 +162,20 @@ class CppDivideNulling(_BinaryNumeric):
     op_name = "CPP_DIVIDE_NULLING"
 
     def compute(self, a, b, ctx, valid, rt):
-        q, zero = _IntSafeDiv.div(a, b, is_integer(rt))
+        q, zero = _IntSafeDiv.div(a, b, is_integer(rt),
+                                  rt == DataType.UINT64)
         return q, ~zero
 
     def _adds_nulls(self):
         return True
 
 
-def _cpp_mod(a, b):
+def _cpp_mod(a, b, rt: DataType):
     """(C++ ``a % b`` with 1 in place of a zero divisor, zero divisor)."""
     zero = b == 0
     safe = torch.where(zero, 1, b)
+    if rt == DataType.UINT64:
+        return u64_divmod(a, safe)[1], zero
     return a - _trunc_div(a, safe) * safe, zero
 
 
@@ -171,7 +184,7 @@ class ModulusSignaling(_BinaryNumeric):
     op_name = "MODULUS_SIGNALING"
 
     def compute(self, a, b, ctx, valid, rt):
-        r, zero = _cpp_mod(a, b)
+        r, zero = _cpp_mod(a, b, rt)
         ctx.flag_error("modulus by zero",
                        zero if valid is None else (zero & valid))
         return r, None
@@ -181,7 +194,7 @@ class ModulusNulling(_BinaryNumeric):
     op_name = "MODULUS_NULLING"
 
     def compute(self, a, b, ctx, valid, rt):
-        r, zero = _cpp_mod(a, b)
+        r, zero = _cpp_mod(a, b, rt)
         return r, ~zero
 
     def _adds_nulls(self):
@@ -203,14 +216,13 @@ class Negate(Expression):
         t = cb.type
         if t in (DataType.UINT32, DataType.UINT64):
             t = DataType.INT64
-        dt = torch_dtype(t)
 
         def fn(ctx: EvalContext) -> ExprValue:
             v = cb.evaluate(ctx)
-            return ExprValue(-(v.values.to(dt)), v.valid)
+            return ExprValue(-convert(v.values, cb.type, t), v.valid)
 
-        return BoundExpression(Attribute(f"NEGATE({cb.name})", t,
-                                         cb.nullable), fn)
+        return fold_constants(BoundExpression(
+            Attribute(f"NEGATE({cb.name})", t, cb.nullable), fn), [cb])
 
 
 CppDivideQuiet = CppDivide  # reference: OPERATOR_CPP_DIVIDE_QUIET

@@ -75,3 +75,41 @@ def staged(luts, num_entries: int) -> bool:
     widths = [t.element_size() for t in luts]
     return bool(library().ss_lut_gather_staged(num_entries, len(widths),
                                                int_array(widths)))
+
+
+class BoundLut:
+    """A LUT built on the host at bind: its tensor on each device is
+    uploaded once, at its first use there, and reused by every later
+    evaluation of the bound plan."""
+
+    __slots__ = ("host", "_on")
+
+    def __init__(self, host):
+        host = torch.as_tensor(host)
+        if host.dim() != 1 or host.shape[0] == 0:
+            raise ValueError("BoundLut: a non-empty 1-D table")
+        self.host = host
+        self._on: dict = {}
+
+    def __len__(self) -> int:
+        return self.host.shape[0]
+
+    def on(self, device) -> torch.Tensor:
+        device = torch.device(device)
+        t = self._on.get(device)
+        if t is None:
+            t = self._on[device] = self.host.to(device)
+        return t
+
+
+def take_small(src, idx: torch.Tensor) -> torch.Tensor:
+    """``src[clip(idx, 0, len(src) - 1)]`` for a 1-D ``src`` (a tensor or a
+    ``BoundLut``) and 1-D integer ``idx``: one ``lut_gather`` lane, so a
+    CUDA tensor always takes the kernel.  Port of
+    ``supersonic_tpu/kernels/lut_gather.py::take_small``."""
+    if isinstance(src, BoundLut):
+        src = src.on(idx.device)
+    k = src.shape[0]
+    if idx.dtype != torch.int32:
+        idx = idx.clamp(0, k - 1).to(torch.int32)
+    return lut_gather([src], idx, k)[0]

@@ -62,7 +62,8 @@ from ..kernels import MAX_ARRAYS
 from ..kernels.compaction import compact_kernel
 from ..kernels.merge_sorted import sortable_words
 from ..schema import Attribute, SchemaError, TupleSchema
-from ..types import DataType, physical_dtype, torch_dtype
+from ..types import (DataType, physical_dtype, torch_dtype, u64_key,
+                     wrap_u32)
 from .base import BindContext, BoundOperation, Operation, RunContext, not_ported
 from .keys import descending_code, group_code_columns, monotone_code
 
@@ -181,14 +182,16 @@ def _dense_domain(cb, names, key_attrs, specs, schema_in, options=None):
     """(dims, K) when the group keys have a planned composite domain of at
     most 2048 slots: per key (name, attr, kmin, K_i), from the value map of
     an ENUM key, the dictionary size of a STRING/BINARY key or the planner
-    statistics of an INT32/INT64/DATE/DATETIME key.  None sends the
+    statistics of an INT32/INT64/UINT32/DATE/DATETIME key.  None sends the
     group-by to the sort path, as the JAX package does: a
     ``max_unique_keys_in_result`` clamp, a DISTINCT or CONCAT aggregate, a
     nullable key, a key without statistics, more slots, a 64-bit or
     DOUBLE input of SUM/MIN/MAX, or a SUM into an 8-byte output (SUM
     aggregates in its output type, which the kernel's 32-bit accumulators
     do not hold).  Every other output type is the kernel's result cast, as
-    in the JAX package's dense path."""
+    in the JAX package's dense path.  A UINT32 input lies in int64 lanes
+    here, so it takes the sort path (the JAX package sums it densely; the
+    rows are the same)."""
     if options is not None and options.max_unique_keys_in_result:
         return None
     if any(s.distinct for s in specs):
@@ -204,7 +207,8 @@ def _dense_domain(cb, names, key_attrs, specs, schema_in, options=None):
             if d is None:
                 return None
             dom = (0, max(len(d) - 1, 0))
-        elif key_attr.type in (DataType.INT32, DataType.INT64, DataType.DATE,
+        elif key_attr.type in (DataType.INT32, DataType.INT64,
+                               DataType.UINT32, DataType.DATE,
                                DataType.DATETIME):
             dom = cb.stats.get(name)
             if dom is None:
@@ -367,6 +371,14 @@ def _dense_grouped_aggregate(t: Table, dims, specs, schema_in, out_dicts,
             for a in out_schema}
     return Table(out_schema, cols, num_groups.clamp(max=out_cap), dev,
                  out_dicts, cap_hint=out_cap)
+
+
+def _wrap_u32_sums(cols: dict, out_schema: TupleSchema) -> dict:
+    """UINT32 outputs reduced modulo 2^32: a SUM aggregates in its output
+    type, and the int64 sums here hold the exact total."""
+    return {n: (Column(wrap_u32(c.values), c.valid)
+                if out_schema.lookup(n).type == DataType.UINT32 else c)
+            for n, c in cols.items()}
 
 
 def _pass_key(spec: AggSpec):
@@ -793,7 +805,8 @@ def _grouped_aggregate(t: Table, names, specs, schema_in, out_dicts,
         cols = {n: Column(c.values[:out_cap],
                           None if c.valid is None else c.valid[:out_cap])
                 for n, c in cols.items()}
-    return Table(out_schema, cols, n_out, dev, out_dicts, cap_hint=out_cap)
+    return Table(out_schema, _wrap_u32_sums(cols, out_schema), n_out, dev,
+                 out_dicts, cap_hint=out_cap)
 
 
 class GroupAggregate(Operation):
@@ -1216,9 +1229,15 @@ class ScalarAggregate(Operation):
                                             None)
                 elif agg in (Aggregation.MIN, Aggregation.MAX):
                     is_min = agg == Aggregation.MIN
+                    # UINT64 bits compare unsigned through their key
+                    u64 = schema_in.lookup(s.input).type == DataType.UINT64
+                    if u64:
+                        vals = u64_key(vals)
                     v = torch.where(weight, vals,
                                     _extreme(vals.dtype, is_min))
                     v = v.amin() if is_min else v.amax()
+                    if u64:
+                        v = u64_key(v)
                     cols[s.output] = Column(v.to(odt).reshape(1), some)
                 elif agg in (Aggregation.FIRST, Aggregation.LAST):
                     n = torch.as_tensor(t.num_rows, device=dev).reshape(1)
@@ -1241,7 +1260,8 @@ class ScalarAggregate(Operation):
                     cols[s.output] = Column(
                         torch.zeros(1, dtype=torch.int32, device=dev),
                         valid.any().reshape(1))
-            return Table(out_schema, cols, 1, dev, out_dicts, cap_hint=1)
+            return Table(out_schema, _wrap_u32_sums(cols, out_schema), 1, dev,
+                         out_dicts, cap_hint=1)
 
         return BoundOperation(out_schema, out_dicts, fn, 1)
 

@@ -57,15 +57,16 @@ class RunContext:
     # (flag name, 0-d bool device tensor) pairs
     error_flags: list = field(default_factory=list)
     cancel: Optional[CancellationToken] = None
-    # host work resolved after the run (DeferredConcat records whose aux
-    # tensors execute() reads back; ops/host.py::resolve_deferred)
+    # host work resolved after the run (DeferredConcat and DeferredRender
+    # records whose aux tensors execute() reads back;
+    # ops/host.py::resolve_deferred)
     deferred: list = field(default_factory=list)
     # (listener, name, row count) of each Spy that ran, reported after the
     # flags' host sync
     spies: list = field(default_factory=list)
 
     def eval_context(self, table: Table) -> EvalContext:
-        return EvalContext(table, self.error_flags)
+        return EvalContext(table, self.error_flags, self.deferred)
 
 
 @dataclass

@@ -54,8 +54,9 @@ build-sorted rhs.  The JAX package's dup-packed and merge spread-fill
 routes are TPU gather workarounds and are not carried.
 
 RIGHT_OUTER and FULL_OUTER compose the operators above, as the JAX package
-does (``HashJoin._bind_outer_rewrite``).  UINT32/UINT64 keys raise
-``NotImplementedError`` (ROADMAP.md queue 1 item 1).
+does (``HashJoin._bind_outer_rewrite``).  Keys compare by
+``monotone_code``, as in the JAX package: a UINT32 key is dense over its
+statistics, a UINT64 key takes the merge probe.
 """
 from __future__ import annotations
 
@@ -71,7 +72,7 @@ from ..kernels.lut_gather import lut_gather
 from ..kernels.spread import I32_MAX, spread_kernel
 from ..schema import Attribute, SchemaError, TupleSchema
 from ..types import DataType
-from .base import BindContext, BoundOperation, Operation, RunContext, not_ported
+from .base import BindContext, BoundOperation, Operation, RunContext
 from .keys import monotone_code
 from .project import Projector
 from .union import remap_codes
@@ -95,10 +96,9 @@ class KeyUniqueness(enum.Enum):
 
 _INT_TYPES = (DataType.INT32, DataType.INT64, DataType.UINT32,
               DataType.UINT64)
-# keys dense over planner statistics (JAX _DENSE_KEY_TYPES; UINT32 columns
-# are not ported)
-_STAT_KEY_TYPES = (DataType.INT32, DataType.INT64, DataType.DATE,
-                   DataType.DATETIME)
+# keys dense over planner statistics (JAX _DENSE_KEY_TYPES)
+_STAT_KEY_TYPES = (DataType.INT32, DataType.INT64, DataType.UINT32,
+                   DataType.DATE, DataType.DATETIME)
 _DICT_KEY_TYPES = (DataType.STRING, DataType.BINARY)
 _DENSE_RANGE_MAX = 1 << 24  # slots of a fat LUT or CSR (as the JAX package)
 
@@ -409,9 +409,6 @@ class HashJoin(Operation):
                                            and ra.type in _INT_TYPES):
                 raise SchemaError(
                     f"join key type mismatch {la.type}/{ra.type}")
-            for a in (la, ra):
-                if a.type in (DataType.UINT32, DataType.UINT64):
-                    not_ported(f"join on a {a.type.value} key", "1")
             promote.append(torch.int64 if la.type != ra.type else None)
             if la.type in _DICT_KEY_TYPES and lb.dicts[lk] is not rb.dicts[rk]:
                 remaps[rk] = rb.dicts[rk].codes_in(lb.dicts[lk])

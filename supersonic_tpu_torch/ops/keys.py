@@ -15,15 +15,18 @@ import torch
 
 from ..dictionary import DeferredDictionary
 from ..schema import SchemaError
-from ..types import DataType
+from ..types import DataType, u64_key
 
 
 def monotone_code(values: torch.Tensor, type_: DataType) -> torch.Tensor:
-    """Integers stay as they are; floats stay floats with -0.0 normalized
-    to +0.0 (so the two compare equal, like C++ ``<``); BOOL maps to
-    int32."""
+    """Integers stay as they are (UINT32 already lies in int64 lanes);
+    UINT64 bits shift into the signed range (+2^63, wrapping); floats stay
+    floats with -0.0 normalized to +0.0 (so the two compare equal, like C++
+    ``<``); BOOL maps to int32."""
     if type_ in (DataType.FLOAT, DataType.DOUBLE):
         return torch.where(values == 0, torch.zeros_like(values), values)
+    if type_ == DataType.UINT64:
+        return u64_key(values)
     if type_ == DataType.BOOL:
         return values.to(torch.int32)
     return values

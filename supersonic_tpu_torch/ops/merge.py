@@ -16,7 +16,9 @@ STRING/BINARY dictionaries merge at bind (``union.bind_dictionaries``) and
 each child's codes are remapped first, so codes compare as values.  Live
 counts stay on the device.  An order of more compare words than the
 kernel takes (``MAX_KEYS``) concatenates the children and sorts them
-once, stably (``sort_table``).
+once, stably (``sort_table``).  A UINT64 key column rides the merge as its
+``monotone_code`` (the sign bit flipped, an involution) and flips back
+after it.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from ..batch import Column, Table
 from ..kernels.merge_sorted import (MAX_KEYS, MergeKey, compare_words,
                                     merge_sorted)
 from ..schema import SchemaError
+from ..types import DataType, u64_key
 from .base import BindContext, BoundOperation, Operation, RunContext
 from .sort import SortOrder, sort_table
 from .union import bind_dictionaries, remap_codes, union_schema
@@ -53,6 +56,8 @@ class MergeUnionAll(Operation):
                          lane_of[k.name] + 1 if schema.lookup(k.name).nullable
                          else None) for k in self.order.keys]
         by_sort = compare_words(keys) > MAX_KEYS
+        u64 = {k.name for k in self.order.keys
+               if schema.lookup(k.name).type == DataType.UINT64}
         dicts, remaps = bind_dictionaries(schema, cbs)
         out_cap = sum(cb.capacity for cb in cbs)
 
@@ -62,7 +67,7 @@ class MergeUnionAll(Operation):
             lanes = []
             for a in schema:
                 c = cols[a.name]
-                lanes.append(c.values)
+                lanes.append(u64_key(c.values) if a.name in u64 else c.values)
                 if a.nullable:
                     lanes.append(c.valid if c.valid is not None else
                                  torch.ones(t.capacity, dtype=torch.bool,
@@ -103,9 +108,11 @@ class MergeUnionAll(Operation):
                 lanes = merge_sorted(lanes, side(t, remap), keys,
                                      cap + t.capacity, rows, t.num_rows)
                 rows, cap = rows + t.num_rows, cap + t.capacity
-            cols = {a.name: Column(lanes[lane_of[a.name]],
-                                   lanes[lane_of[a.name] + 1] if a.nullable
-                                   else None) for a in schema}
+            cols = {a.name: Column(
+                u64_key(lanes[lane_of[a.name]]) if a.name in u64
+                else lanes[lane_of[a.name]],
+                lanes[lane_of[a.name] + 1] if a.nullable else None)
+                for a in schema}
             return Table(schema, cols, rows, tables[0].device, dicts,
                          cap_hint=cap)
 

@@ -348,3 +348,123 @@ def test_golden_foreign_filter():
     out = T.execute(T.ForeignFilter("fk", "key", T.ScanTable(inp),
                                     T.ScanTable(filt)))
     assert_tables_match(out, _golden_out("foreign_filter"))
+
+
+def test_golden_bench_compute():
+    """bench_ops.py's "compute c0 * (sin + exp)" (operation_example.cc:
+    44-50): torch's sin/exp against libm's in the last bits."""
+    (t,) = _inputs("bench_compute")
+    c = T.col
+    out = T.execute(T.Compute(
+        (c("col0") * (T.Sin(c("col2")) + T.Exp(c("col1")))).as_("expr"),
+        T.ScanTable(t)))
+    assert_tables_match(out, _golden_out("bench_compute"), float_rtol=1e-13)
+
+
+def test_golden_expr_mix():
+    """IsNull, IfNull, If, a nulling division, Length (UINT32), ToUpper and
+    the date fields: every value exact."""
+    (t,) = _inputs("expr_mix")
+    a, b, s, d = T.col("a"), T.col("b"), T.col("s"), T.col("d")
+    out = T.execute(T.Compute(
+        [T.Plus(a, T.ConstInt32(7)).as_("plus7"),
+         T.IsNull(a).as_("isnull"),
+         T.IfNull(a, T.ConstInt32(-99)).as_("ifnull"),
+         T.If(T.Greater(b, 0.0), a, T.ConstInt32(-1)).as_("ifgt"),
+         T.DivideNulling(a, T.Modulus(a, T.ConstInt32(5))).as_("ndiv"),
+         T.Length(s).as_("slen"),
+         T.ToUpper(s).as_("supper"),
+         T.Year(d).as_("year"),
+         T.Month(d).as_("month"),
+         T.Day(d).as_("day")],
+        T.ScanTable(t)))
+    assert out.schema.lookup("slen").type == T.UINT32
+    assert_tables_match(out, _golden_out("expr_mix"))
+
+
+@pytest.mark.parametrize("domains", [True, False],
+                         ids=["domain", "no_domain"])
+def test_golden_tostring(domains):
+    """ToString of BOOL, DATE and INT32 in the reference's printer formats:
+    through bind-time dictionaries under ``domain`` bounds, and without
+    them through the per-row rendering after the run (DeferredRender)."""
+    (t,) = _inputs("tostring")
+    kw = ({"sd": {"domain": (0, 25000)}, "si": {"domain": (-500, 500)}}
+          if domains else {"sd": {}, "si": {}})
+    out = T.execute(T.Compute(
+        [T.ToString(T.col("b")).as_("sb"),
+         T.ToString(T.col("d"), **kw["sd"]).as_("sd"),
+         T.ToString(T.col("i"), **kw["si"]).as_("si")],
+        T.ScanTable(t)))
+    assert_tables_match(out, _golden_out("tostring"))
+
+
+def test_golden_stateful():
+    """Changed, RunningSum, Smudge, SmudgeIf and RunningMinWithFlush as
+    whole-column scans, row for row against the C++ engine's per-row
+    state."""
+    (t,) = _inputs("stateful")
+    c = T.col
+    out = T.execute(T.Compute(
+        [T.Changed(c("seq")).as_("chg"),
+         T.RunningSum(c("v")).as_("rsum"),
+         T.Smudge(c("v")).as_("smu"),
+         T.SmudgeIf(c("v"), c("flush")).as_("smuif"),
+         T.RunningMinWithFlush(c("flush"), c("v")).as_("rmin")],
+        T.ScanTable(t)))
+    assert_tables_match(out, _golden_out("stateful"))
+
+
+def test_golden_string_ops():
+    """Substring (negative positions too), StringOffset, StringReplace and
+    a Concat of two non-constant STRING columns (a cross dictionary)."""
+    (t,) = _inputs("string_ops")
+    c = T.col
+    out = T.execute(T.Compute(
+        [T.Substring(c("s"), 2, 3).as_("sub"),
+         T.Substring(c("s"), -3, 2).as_("subn"),
+         T.StringOffset(c("s"), "a").as_("off"),
+         T.StringReplace(c("s"), "a", "oo").as_("rep"),
+         T.Concat(c("s"), "-", c("s2")).as_("cat")],
+        T.ScanTable(t)))
+    assert_tables_match(out, _golden_out("string_ops"))
+
+
+def test_golden_makedate():
+    """MakeDate and MakeDatetime normalize months and days as mkgmtime_int64
+    does; AddMonths over them."""
+    (t,) = _inputs("makedate")
+    c = T.col
+    out = T.execute(T.Compute(
+        [T.MakeDate(c("y"), c("m"), c("d")).as_("md"),
+         T.MakeDatetime(c("y2"), c("m"), c("d"), c("h"), T.Const(90),
+                        T.Const(-5)).as_("mdt"),
+         T.AddMonths(T.MakeDate(c("y"), T.Const(1), c("d")),
+                     c("m")).as_("addm")],
+        T.ScanTable(t)))
+    assert_tables_match(out, _golden_out("makedate"))
+
+
+def test_golden_date_local():
+    """The *Local fields and DateFormat/DateFormatLocal under
+    America/New_York, the 2024 DST boundary instants included."""
+    (t,) = _inputs("date_local")
+    hi_us = 2_100_000_000 * 1_000_000
+    c = T.col
+    T.set_local_timezone("America/New_York")
+    try:
+        out = T.execute(T.Compute(
+            [T.YearLocal(c("t")).as_("y"),
+             T.MonthLocal(c("t")).as_("mo"),
+             T.DayLocal(c("t")).as_("dy"),
+             T.HourLocal(c("t")).as_("h"),
+             T.MinuteLocal(c("t")).as_("mi"),
+             T.WeekdayLocal(c("t")).as_("wd"),
+             T.DateFormat(c("t"), "%Y/%m/%d %a",
+                          domain=(0, hi_us)).as_("fmt"),
+             T.DateFormatLocal(c("t"), "%Y/%m/%d %a",
+                               domain=(0, hi_us)).as_("fmtl")],
+            T.ScanTable(t)))
+    finally:
+        T.set_local_timezone(None)
+    assert_tables_match(out, _golden_out("date_local"))

@@ -26,7 +26,13 @@ def test_import_leaves_jax_out():
         "supersonic_tpu_torch.exprs.arithmetic, "
         "supersonic_tpu_torch.exprs.logic, "
         "supersonic_tpu_torch.exprs.elementary, "
-        "supersonic_tpu_torch.exprs.terminal; "
+        "supersonic_tpu_torch.exprs.terminal, "
+        "supersonic_tpu_torch.exprs.math, supersonic_tpu_torch.exprs.string, "
+        "supersonic_tpu_torch.exprs.regexp, supersonic_tpu_torch.exprs.date, "
+        "supersonic_tpu_torch.exprs.tz, supersonic_tpu_torch.exprs.stateful, "
+        "supersonic_tpu_torch.exprs.hashing, "
+        "supersonic_tpu_torch.parallel.hashing, "
+        "supersonic_tpu_torch.ops.segscan; "
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'supersonic_tpu' "
         "or m.startswith('supersonic_tpu.')); "

@@ -259,62 +259,81 @@ def test_dense_aggregate_float_nans_and_signed_zeros_match_jax():
     assert all(np.isnan(r[4]) for r in want)  # the JAX kernel's one-hot dot
 
 
-def _counts(t):
-    """COUNT per fk: a UINT64 column (stored as int64)."""
-    return T.GroupAggregate(["fk"], [T.AggSpec(T.Aggregation.COUNT, None,
-                                               "c")], T.ScanTable(t))
+def _counts(ns, t):
+    """COUNT per fk: a UINT64 column.  The key is computed (no statistics),
+    so the JAX package takes its sort path, not an interpret-mode kernel."""
+    return ns.GroupAggregate(["fk"], [ns.AggSpec(ns.Aggregation.COUNT, None,
+                                                 "c")],
+                             ns.Compute([ns.col("fk")], ns.ScanTable(t)))
 
 
 @pytest.mark.parametrize("make", [
-    # every join type and key type the port carries is ported; a UINT64
-    # key (COUNT's output) is not (item 1), on either side
-    lambda t, d: T.HashJoin(T.JoinType.LEFT_OUTER, ["c"], ["pk"],
-                            _counts(t), T.ScanTable(d),
-                            T.KeyUniqueness.UNIQUE,
-                            rhs_projector=T.Projector.named("g"),
-                            allow_dense_lookup=False),
-    lambda t, d: T.HashJoin(T.JoinType.INNER, ["pk"], ["c"],
-                            T.ScanTable(d), _counts(t),
-                            allow_dense_lookup=False),
-    # every group-by option of item 12 is ported but the spill of
-    # HybridGroupAggregate under a memory quota (item 15); STRING constants
-    # are item 14
-    lambda t, d: T.HybridGroupAggregate(["pk"], [T.AggSpec(
-        T.Aggregation.COUNT, None, "c")], T.ScanTable(d),
-        T.GroupAggregateOptions(memory_quota=100)),
-    lambda t, d: T.GroupAggregate(["g"], [T.AggSpec(T.Aggregation.SUM, "v",
-                                                    "s", T.DOUBLE)],
-                                  T.Compute([T.col("g"), T.col("v"),
-                                             T.Const("x", T.STRING).as_("w")],
-                                            T.ScanTable(d))),
+    # a UINT64 join key (COUNT's output), on either side: keys compare by
+    # their monotone codes, as in the JAX package
+    lambda ns, t, d: ns.HashJoin(ns.JoinType.LEFT_OUTER, ["c"], ["pk"],
+                                 _counts(ns, t), ns.ScanTable(d),
+                                 ns.KeyUniqueness.UNIQUE,
+                                 rhs_projector=ns.Projector.named("g"),
+                                 allow_dense_lookup=False),
+    lambda ns, t, d: ns.HashJoin(ns.JoinType.INNER, ["pk"], ["c"],
+                                 ns.ScanTable(d), _counts(ns, t),
+                                 allow_dense_lookup=False),
+    # the spill of HybridGroupAggregate under a memory quota is item 15
+    lambda ns, t, d: ns.HybridGroupAggregate(["pk"], [ns.AggSpec(
+        ns.Aggregation.COUNT, None, "c")], ns.ScanTable(d),
+        ns.GroupAggregateOptions(memory_quota=100)),
+    # a STRING constant beside the group-by's input
+    lambda ns, t, d: ns.GroupAggregate(
+        ["g"], [ns.AggSpec(ns.Aggregation.SUM, "v", "s", ns.DOUBLE)],
+        ns.Compute([ns.col("g"), ns.col("v"),
+                    ns.Const("x", ns.STRING).as_("w")], ns.ScanTable(d))),
 ], ids=["left_outer", "not_unique", "non_dense_group_by", "sum_widening"])
-def test_outside_the_slice_raises_not_implemented(make):
+def test_outside_the_slice_raises_not_implemented(make, request):
+    """What is still outside the port raises NotImplementedError naming its
+    ROADMAP.md item; the cases this test pinned before their slice came
+    give the JAX package's rows."""
     fact, dim = headline_data(FACT, DIM)
-    _, (tf, td) = _tables(fact, dim)
-    td = T.Table.from_numpy(
-        schema(T, DIM_SCHEMA + (("v", "FLOAT", False),)),
-        dict(dim, pk=dim["pk"] * 4, v=np.ones(DIM, np.float32)),
-        device="cpu")  # pk spans 4093 slots: past the dense group-by's 2048
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.execute(make(tf, td))
+    dim = dict(dim, pk=dim["pk"] * 4, v=np.ones(DIM, np.float32))
+    cols = DIM_SCHEMA + (("v", "FLOAT", False),)
+    tf, td = (torch_table(T, FACT_SCHEMA, fact), torch_table(T, cols, dim))
+    # pk spans 4093 slots: past the dense group-by's 2048
+    if request.node.callspec.id == "non_dense_group_by":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            T.execute(make(T, tf, td))
+        return
+    jf, jd = jax_table(J, FACT_SCHEMA, fact), jax_table(J, cols, dim)
+    want = J.execute(make(J, jf, jd))
+    got = T.execute(make(T, tf, td))
+    assert [(a.name, a.type.value) for a in got.schema] == \
+        [(a.name, a.type.value) for a in want.schema]
+    got, want = sorted(got.to_pylist()), sorted(want.to_pylist())
+    assert len(got) == len(want)
+    for g, w in zip(got, want):  # DOUBLE sums: PARITY.md's float tolerance
+        assert g == pytest.approx(w, rel=1e-12)
 
 
 def test_string_columns_are_not_ported():
-    """STRING columns are ported now (dictionary codes, as in the JAX
-    package); string constants (ROADMAP.md queue 1 item 14) and UINT32
-    columns (item 1) still raise."""
+    """STRING and UINT32 columns and STRING constants are ported (the JAX
+    package's rows): a UINT32 column past 2^31 and a STRING constant
+    compared with a column of another dictionary."""
     t = T.Table.from_data(T.TupleSchema.of(("s", T.DataType.STRING)),
                           {"s": ["b", "a", None, "b"]}, device="cpu")
     j = J.Table.from_data(J.TupleSchema.of(("s", J.DataType.STRING)),
                           {"s": ["b", "a", None, "b"]})
     assert t.to_pylist() == j.to_pylist() == [("b",), ("a",), (None,),
                                               ("b",)]
-    with pytest.raises(NotImplementedError, match="item 1:"):
-        T.Table.from_data(T.TupleSchema.of(("d", T.DataType.UINT32)),
-                          {"d": [1]}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.execute(T.Filter(T.col("s") > T.Const("a", T.DataType.STRING),
-                           T.ScanTable(t)))
+    u = [1, 2**31 + 5, 2**32 - 1]
+    tu = T.Table.from_data(T.TupleSchema.of(("d", T.DataType.UINT32, False)),
+                           {"d": u}, device="cpu")
+    ju = J.Table.from_data(J.TupleSchema.of(("d", J.DataType.UINT32, False)),
+                           {"d": u})
+    assert tu.to_pylist() == ju.to_pylist() == [(x,) for x in u]
+    assert tu.to_numpy()["d"].dtype == np.uint32
+    got = T.execute(T.Filter(T.col("s") > T.Const("a", T.DataType.STRING),
+                             T.ScanTable(t)))
+    want = J.execute(J.Filter(J.col("s") > J.Const("a", J.DataType.STRING),
+                              J.ScanTable(j)))
+    assert got.to_pylist() == want.to_pylist() == [("b",), ("b",)]
 
 
 def test_composite_keys_match_jax():
