@@ -87,7 +87,18 @@ take the merge probe, STRING keys and the outer join types:
      group-by keyed by BitwiseAnd(Hash(fk), 63), a Sort of UINT64 values
      past 2^63, and the host render of ToString and DateFormat over 1M
      rows.  The LUT gather is also checked and timed at this slice's two
-     call shapes (a 150-entry LUT, the 3-lane time-zone LUT)
+     call shapes (a 150-entry LUT, the 3-lane time-zone LUT).  Then the
+     files and the spills: (aa) ``save`` and ``load(device="cuda")`` of
+     the headline fact (100M rows), (m)'s STRING dim (1M rows) and a 1M-row
+     table with one nullable column of each of the 13 types, every value
+     and NULL bit-equal, each way's median of 5 and its MB/s; (ab)
+     bench_ops.py:136-140's "groupby 8M->1M keys" at its 8M rows as a
+     HybridGroupAggregate under a memory quota of 1M pregroup rows (8
+     chunks spilled through the external sort, merged by the C++ k-way
+     merge), against numpy and the plan without a quota; (ac)
+     bench_ops.py:143-145's "sort 8M by (g,v)" as a SortWithTempDirPrefix
+     under an eighth of its working set (8 runs), against the in-memory
+     Sort; each with its median of 5, its launches and its disk bytes
   5. the median times of the headline query (under both bindings, and
      its aggregate in insertion order under both), of join (a), of merges
      (d) and (e), of group-bys (g), (h) and (j), of joins (k)-(n) and of
@@ -2898,6 +2909,294 @@ def slice_phases(T, dev, drive, li, li_t, fact, fg_t, fg):
     return medians, summary
 
 
+# --- paths (aa)-(ac): the columnar files, the spilling group-by and sort ---
+
+SPILL_ROWS = 8_000_000         # (ab), (ac): bench_ops.py's 8M-row fact
+SPILL_RUNS = 8                 # (ab) pregroup chunks, (ac) sort runs
+TYPES_ROWS = 1_000_000         # (aa): the table of every type
+ALL_TYPES = ("INT32", "INT64", "UINT32", "UINT64", "FLOAT", "DOUBLE", "BOOL",
+             "DATE", "DATETIME", "STRING", "BINARY", "ENUM", "DATA_TYPE")
+
+
+def median_of(fn):
+    """(median ms, all ms) of REPEATS runs of ``fn`` on the host clock, the
+    card synchronized around each."""
+    import torch
+
+    times = []
+    for _ in range(REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
+
+
+def all_types_table(T, dev, seed=47):
+    """(aa)'s third table: one nullable column of each of the 13 types, a
+    fifth of the rows NULL, NaNs of both signs, +-0 and infinities among the
+    floats, unsigned values past 2^31 and 2^63, a STRING and a BINARY
+    column of 1000 values (the empty one included)."""
+    rng = np.random.default_rng(seed)
+    n = TYPES_ROWS
+    arrays, dicts, attrs = {}, {}, []
+    words = sorted({""} | {f"w{i:04d}" for i in range(999)})
+    for i, t in enumerate(ALL_TYPES):
+        name = f"c{i}"
+        if t in ("STRING", "BINARY"):
+            vals = rng.integers(0, len(words), n).astype(np.int32)
+            dicts[name] = T.Dictionary(tuple(
+                words if t == "STRING" else sorted(w.encode() for w in words)))
+        elif t in ("ENUM", "DATA_TYPE"):
+            vals = rng.integers(0, 5, n).astype(np.int32)
+        elif t == "BOOL":
+            vals = rng.random(n) > 0.5
+        elif t in ("FLOAT", "DOUBLE"):
+            dt = np.float32 if t == "FLOAT" else np.float64
+            vals = rng.standard_normal(n).astype(dt)
+            vals[::97] = np.nan
+            vals[1::97] = -np.abs(vals[1::97]) * np.inf
+            vals[2::97] = -0.0
+            bits_ = vals.view(np.int32 if t == "FLOAT" else np.int64)
+            bits_[3::97] = np.array(-1, bits_.dtype)  # a NaN of the minus sign
+        elif t == "UINT32":
+            vals = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+        elif t == "UINT64":
+            vals = rng.integers(0, 2**64 - 1, n, dtype=np.uint64)
+        elif t in ("INT64", "DATETIME"):
+            vals = rng.integers(-2**62, 2**62, n)
+        else:
+            vals = rng.integers(-2**31, 2**31, n).astype(np.int32)
+        arrays[name] = (vals, rng.random(n) > 0.2)
+        attrs.append(T.Attribute(name, getattr(T.DataType, t), True,
+                                 T.EnumDefinition(("a", "b", "c", "d", "e"))
+                                 if t == "ENUM" else None))
+    return T.Table.from_numpy(T.TupleSchema(attrs), arrays, None, dicts,
+                              device=dev)
+
+
+def same_table(torch, got, want, label):
+    """Every live value of ``want`` (bit for bit, NULL rows aside) and every
+    NULL in ``got``; STRING/BINARY codes compared through their
+    dictionaries.  Returns the NULL count."""
+    n = int(want.num_rows)
+    assert int(got.num_rows) == n, f"{label}: rows"
+    nulls = 0
+    for a in want.schema:
+        cw, cg = want.columns[a.name], got.columns[a.name]
+        ok = (torch.ones(n, dtype=torch.bool, device=cw.values.device)
+              if cw.valid is None else cw.valid[:n])
+        okg = (torch.ones_like(ok) if cg.valid is None else cg.valid[:n])
+        assert torch.equal(ok, okg), f"{label}: NULLs of {a.name}"
+        nulls += int((~ok).sum())
+        w = bits(cw.values[:n])
+        if a.name in want.dicts:
+            lut = torch.from_numpy(want.dicts[a.name].codes_in(
+                got.dicts[a.name])).to(w.device)
+            w = lut[w.long()].to(w.dtype)
+        g = bits(cg.values[:n])
+        assert torch.equal(torch.where(ok, w, 0), torch.where(ok, g, 0)), \
+            f"{label}: values of {a.name}"
+    return nulls
+
+
+def file_round_trips(torch, T, dev, tables, smi, tmp):
+    """Path (aa): each (label, table) through ``save`` and
+    ``load(device="cuda")`` in ``tmp``: every value and NULL bit-equal to
+    the source, then medians of 5 each way and their MB/s."""
+    from supersonic_tpu_torch import kernels
+    from supersonic_tpu_torch.io import load, save
+
+    lines = []
+    for label, t in tables:
+        path = str(pathlib.Path(tmp) / "aa.sst")
+        kernels.reset_launches()
+        save(path, t)
+        back = load(path, device=dev)
+        launched = dict(kernels.launches)
+        nbytes = pathlib.Path(path).stat().st_size
+        nulls = same_table(torch, back, t, f"(aa) {label}")
+        assert back.device == t.device, f"(aa) {label}: device"
+        del back
+        save_ms, save_all = median_of(lambda: save(path, t))
+        load_ms, load_all = median_of(lambda: load(path, device=dev))
+        log(f"(aa) {label}: {int(t.num_rows)} rows, {nbytes} bytes written "
+            f"and read; save median {save_ms:.3f} ms "
+            f"({nbytes / save_ms / 1e3:.1f} MB/s), load median "
+            f"{load_ms:.3f} ms ({nbytes / load_ms / 1e3:.1f} MB/s) over "
+            f"{REPEATS} runs after a warm-up (save: "
+            f"{', '.join(f'{x:.3f}' for x in save_all)}; load: "
+            f"{', '.join(f'{x:.3f}' for x in load_all)}); launches {launched}; "
+            f"card: {smi}")
+        lines.append(f"{label} {int(t.num_rows)} rows bit for bit, "
+                     f"{nulls} NULLs")
+        pathlib.Path(path).unlink()
+    return "; ".join(lines)
+
+
+def hybrid_data(fact):
+    """Path (ab)'s input: the first 8M rows of (g)'s fk (uniform over 1M
+    keys), v and d (the same stream as groupby_hi_tables' d), as
+    bench_ops.py:136-140's "groupby 8M->1M keys" holds them."""
+    n = SPILL_ROWS
+    d = np.random.default_rng(11).random(n) * 2e3 - 1e3
+    return {"fk": fact["fk"][:n], "v": fact["v"][:n], "d": d}
+
+
+def hybrid_plan(T, t, quota, tmp):
+    """Path (ab): (g)'s aggregates as a HybridGroupAggregate under a
+    memory_quota of ``quota`` bytes."""
+    A = T.Aggregation
+    return T.HybridGroupAggregate(
+        ["fk"], [T.AggSpec(A.SUM, "v", "sv"), T.AggSpec(A.COUNT, None, "c"),
+                 T.AggSpec(A.SUM, "d", "sd"), T.AggSpec(A.MAX, "v", "mx")],
+        T.ScanTable(t), T.GroupAggregateOptions(
+            memory_quota=quota, estimated_result_row_count=HI_KEYS),
+        temporary_directory_prefix=tmp)
+
+
+def hybrid_quota(T, t, rows):
+    """The memory_quota in bytes that ``_quota_rows`` turns into ``rows``
+    pregroup rows: the pregroup row's width (each value's bytes and a
+    validity byte a nullable column) times ``rows``."""
+    from supersonic_tpu_torch.ops.aggregate import (_quota_rows,
+                                                    _resolve_output_attr)
+    specs = hybrid_plan(T, t, 1, None).spec.specs
+    pre = T.TupleSchema([t.schema.lookup("fk")] + [
+        _resolve_output_attr(s, t.schema) for s in specs])
+    width = sum(T.types.physical_dtype(a.type).itemsize + a.nullable
+                for a in pre)
+    assert _quota_rows(width * rows, pre) == rows
+    return width * rows
+
+
+def check_hybrid(out, plain, data):
+    """Path (ab) against numpy and against the same plan without a quota:
+    keys in ascending order and exact, counts exact, f32 sums within
+    SUM_RTOL, DOUBLE sums within DOUBLE_RTOL of their sum of |d|, MAX bit
+    for bit.  Returns the group count."""
+    keys, counts, sv, sd, sad, mx = groupby_hi_want(data["fk"], data["v"],
+                                                    data["d"])
+    order = np.argsort(keys, kind="stable")
+    keys, counts, sv, sd, sad, mx = (x[order] for x in
+                                     (keys, counts, sv, sd, sad, mx))
+    got = host_cols(out)
+    assert np.array_equal(got["fk"], keys), "(ab): keys"
+    assert np.array_equal(got["c"], counts), "(ab): counts"
+    assert np.all(np.abs(got["sv"] - sv) <= SUM_RTOL * np.abs(sv)), "(ab): sv"
+    assert np.all(np.abs(got["sd"] - sd) <= DOUBLE_RTOL * sad), "(ab): sd"
+    assert np.array_equal(got["mx"].view(np.int32), mx.view(np.int32)), \
+        "(ab): mx"
+    ref = host_cols(plain)
+    by_key = np.argsort(ref["fk"], kind="stable")
+    assert np.array_equal(ref["fk"][by_key], got["fk"]), "(ab): plain keys"
+    assert np.array_equal(ref["c"][by_key], got["c"]), "(ab): plain counts"
+    assert np.array_equal(ref["mx"][by_key].view(np.int32),
+                          got["mx"].view(np.int32)), "(ab): plain mx"
+    assert np.all(np.abs(ref["sv"][by_key] - got["sv"])
+                  <= SUM_RTOL * np.abs(sv)), "(ab): plain sv"
+    return keys.shape[0]
+
+
+def spill_sort_plan(T, t, limit, tmp):
+    """Path (ac): bench_ops.py:143-145's "sort 8M by (g,v)", g ASC and v
+    DESC, as a SortWithTempDirPrefix under ``limit`` bytes."""
+    return T.SortWithTempDirPrefix(
+        [T.SortKey("g", True), T.SortKey("v", False)], T.ScanTable(t),
+        memory_limit=limit, temporary_directory_prefix=tmp)
+
+
+def check_spill_sort(torch, out, t):
+    """Path (ac): g and v bit for bit the in-memory Sort's, and the rows
+    (g, fk, v) the input's multiset (ties across runs go by partition)."""
+    import supersonic_tpu_torch as T
+
+    mem = T.execute(T.Sort([T.SortKey("g", True), T.SortKey("v", False)],
+                           T.ScanTable(t)))
+    n = int(t.num_rows)
+    assert int(out.num_rows) == n, "(ac): rows"
+    for c in ("g", "v"):
+        assert torch.equal(bits(out.columns[c].values[:n]),
+                           bits(mem.columns[c].values[:n])), f"(ac): {c}"
+    a, b = host_cols(out), host_cols(t)
+    for x in (a, b):
+        x["o"] = np.lexsort((x["fk"], x["v"].view(np.int32), x["g"]))
+    for c in ("g", "fk", "v"):
+        assert np.array_equal(a[c][a["o"]], b[c][b["o"]]), \
+            f"(ac): rows ({c})"
+    return n
+
+
+def spill_phases(torch, T, dev, drive, smi, fact, fact_t, str_dim_t, fg):
+    """Paths (aa)-(ac), each from zeroed launch counters and against numpy,
+    in a temporary directory removed at the end.  Returns the summary."""
+    import tempfile
+
+    from supersonic_tpu_torch import native
+    from supersonic_tpu_torch.io import external
+    from supersonic_tpu_torch.ops.sort import sort_working_set_bytes
+
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        types_t = all_types_table(T, dev)
+        aa = file_round_trips(torch, T, dev, (
+            ("headline fact", fact_t), ("(m)'s join_str dim", str_dim_t),
+            ("every type", types_t)), smi, tmp)
+        del types_t
+        assert native.available(), "(ab), (ac): the C++ merge did not build"
+        hd = hybrid_data(fact)
+        h_t = T.Table.from_numpy(
+            T.TupleSchema.of(("fk", T.INT32, False), ("v", T.FLOAT, False),
+                             ("d", T.DOUBLE, False)), hd, device=dev)
+        quota = hybrid_quota(T, h_t, SPILL_ROWS // SPILL_RUNS)
+        external.reset_disk_bytes()
+        out = drive("(ab) HybridGroupAggregate spilling",
+                    hybrid_plan(T, h_t, quota, tmp),
+                    ("compaction", "lut_gather"))
+        disk_ab = dict(external.disk_bytes)
+        assert disk_ab["written"] > 0, "(ab): no run spilled"
+        n_ab = check_hybrid(out, T.execute(groupby_hi_plan(T, h_t)), hd)
+        del out
+        ab_ms, ab_all = median_of(lambda: T.execute(
+            hybrid_plan(T, h_t, quota, tmp)))
+        log(f"(ab) HybridGroupAggregate {SPILL_ROWS} -> {n_ab} keys, quota "
+            f"{quota} bytes ({SPILL_ROWS // SPILL_RUNS} pregroup rows): "
+            f"median {ab_ms:.3f} ms over {REPEATS} runs after a warm-up "
+            f"(all: {', '.join(f'{x:.3f}' for x in ab_all)}); disk "
+            f"{disk_ab['written']} bytes written, {disk_ab['read']} read; "
+            f"card: {smi}")
+        del h_t
+        s_t = T.Table.from_numpy(
+            T.TupleSchema.of(("g", T.INT32, False), ("fk", T.INT32, False),
+                             ("v", T.FLOAT, False)),
+            {k: v[:SPILL_ROWS] for k, v in fg.items()}, device=dev)
+        limit = sort_working_set_bytes(s_t.schema, s_t.capacity, 2) \
+            // SPILL_RUNS
+        external.reset_disk_bytes()
+        out = drive("(ac) SortWithTempDirPrefix spilling",
+                    spill_sort_plan(T, s_t, limit, tmp), ("lut_gather",))
+        disk_ac = dict(external.disk_bytes)
+        assert disk_ac["written"] > 0, "(ac): no run spilled"
+        n_ac = check_spill_sort(torch, out, s_t)
+        del out
+        ac_ms, ac_all = median_of(lambda: T.execute(
+            spill_sort_plan(T, s_t, limit, tmp)))
+        log(f"(ac) SortWithTempDirPrefix {SPILL_ROWS} rows by (g ASC, v "
+            f"DESC), memory_limit {limit} bytes: median {ac_ms:.3f} ms over "
+            f"{REPEATS} runs after a warm-up (all: "
+            f"{', '.join(f'{x:.3f}' for x in ac_all)}); disk "
+            f"{disk_ac['written']} bytes written, {disk_ac['read']} read; "
+            f"card: {smi}")
+        left = list(pathlib.Path(tmp).iterdir())
+        assert not left, f"(ab), (ac): spill files left behind: {left}"
+    log(f"(aa)-(ac): {time.perf_counter() - start:.1f} s on the host clock")
+    return (f"(aa)-(ac) match numpy: (aa) {aa}; (ab) {n_ab} keys in order, "
+            f"counts and MAX exact, sums within tolerance, equal to the plan "
+            f"without a quota; (ac) {n_ac} rows in the in-memory Sort's key "
+            f"order, the same multiset")
+
+
 def main():
     import torch
 
@@ -3250,6 +3549,9 @@ def main():
     slice_medians, slice_summary = slice_phases(T, dev, drive, li, li_t,
                                                 fact, fg_t, fg)
     log(slice_summary)
+
+    # (aa)-(ac): the columnar files, the spilling group-by and sort
+    log(spill_phases(torch, T, dev, drive, smi, fact, fact_t, str_dim_t, fg))
 
     # 5. times, host clock around execute (which ends in a sync)
     def median_ms(plan_fn, label, size):

@@ -36,8 +36,12 @@ group-by of 1M rows; and the expression engine's paths (u)-(z):
 rows, ``x_utc`` and ``x_local`` the date fields of (x) in UTC and in
 America/New_York, ``y_stateful`` the stateful scans of (y), ``z_hash``,
 ``z_groupby`` and ``z_sort`` the hashes, the hash-keyed group-by and the
-UINT64 Sort of (z), and ``z_render`` its host render of 1M rows.  Several
-names profile one after another.  Each
+UINT64 Sort of (z), and ``z_render`` its host render of 1M rows; and the
+files and spills of (aa)-(ac): ``aa_save`` and ``aa_load`` the save and
+the load of the headline fact (100M rows, in a temporary directory),
+``hybrid`` the HybridGroupAggregate of 8M rows spilling 8 chunks and
+``spill_sort`` the SortWithTempDirPrefix of 8M rows spilling 8 runs.
+Several names profile one after another.  Each
 plan runs twice to warm up, then five
 runs give the host-clock median (each ends in a sync), then three runs are
 profiled with torch.profiler.  Prints the card (nvidia-smi name and power
@@ -52,12 +56,14 @@ time.
          sparse64|join_str|right_outer|full_outer|q6|scalar_distinct|
          distinct|clusters_merge|clusters_raw|clamp|best_effort|topn|limit|
          rowid|foreign|concat|u_math|u_round|v_q14|w_q12|x_utc|x_local|
-         y_stateful|z_hash|z_groupby|z_sort|z_render ...]
+         y_stateful|z_hash|z_groupby|z_sort|z_render|aa_save|aa_load|
+         hybrid|spill_sort ...]
 """
 import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -164,6 +170,36 @@ def expr_plan(which, dev):
     return lambda: S.hash_plans(T, fg_t)[which == "z_groupby"]
 
 
+def spill_work(which, dev, tmp):
+    """One run of a path of (aa)-(ac) (chip_smoke.py), its files under
+    ``tmp``."""
+    from supersonic_tpu_torch.io import load, save
+    from supersonic_tpu_torch.ops.sort import sort_working_set_bytes
+
+    S = chip_smoke
+    fact, dim = S.make_data()
+    if which in ("aa_save", "aa_load"):
+        fact_t = T.Table.from_numpy(S.schemas(T)[0], fact, device=dev)
+        path = str(pathlib.Path(tmp) / "fact.sst")
+        save(path, fact_t)
+        if which == "aa_save":
+            return lambda: save(path, fact_t)
+        del fact_t
+        return lambda: load(path, device=dev)
+    if which == "hybrid":
+        h_t = T.Table.from_numpy(
+            T.TupleSchema.of(("fk", T.INT32, False), ("v", T.FLOAT, False),
+                             ("d", T.DOUBLE, False)),
+            S.hybrid_data(fact), device=dev)
+        quota = S.hybrid_quota(T, h_t, S.SPILL_ROWS // S.SPILL_RUNS)
+        return lambda: T.execute(S.hybrid_plan(T, h_t, quota, tmp))
+    fg_t = S.fact_g_table(T, fact, dim, dev, n=S.SPILL_ROWS)[0]
+    limit = sort_working_set_bytes(fg_t.schema, fg_t.capacity, 2) \
+        // S.SPILL_RUNS
+    return lambda: T.execute(S.spill_sort_plan(T, fg_t, limit, tmp))
+
+
+SPILL = ("aa_save", "aa_load", "hybrid", "spill_sort")
 EXPRS = ("u_math", "u_round", "v_q14", "w_q12", "x_utc", "x_local",
          "y_stateful", "z_hash", "z_groupby", "z_sort", "z_render")
 SLICE = ("q6", "scalar_distinct", "distinct", "clusters_merge",
@@ -238,17 +274,29 @@ def earlier_plan(which, dev):
 
 
 def profile_plan(which, dev):
-    plan = (expr_plan if which in EXPRS else slice_plan if which in SLICE
-            else earlier_plan)(which, dev)
+    with tempfile.TemporaryDirectory(prefix="profile_") as tmp:
+        if which in SPILL:
+            run_once = spill_work(which, dev, tmp)
+        else:
+            plan = (expr_plan if which in EXPRS else slice_plan
+                    if which in SLICE else earlier_plan)(which, dev)
+
+            def run_once():
+                T.execute(plan())
+
+        profile_runs(which, run_once)
+
+
+def profile_runs(which, run_once):
     warnings.simplefilter("ignore")  # the best-effort quota's warning
     print(f"plan: {which}")
     for _ in range(WARMUPS):
-        T.execute(plan())
+        run_once()
     torch.cuda.synchronize()
     times = []
     for _ in range(MEDIAN_RUNS):
         t0 = time.perf_counter()
-        T.execute(plan())
+        run_once()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     print(f"host-clock median {statistics.median(times):.3f} ms over "
@@ -259,7 +307,7 @@ def profile_plan(which, dev):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(RUNS):
-            T.execute(plan())
+            run_once()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / RUNS * 1e3
     peak = (torch.cuda.max_memory_allocated() - base) / 2**30

@@ -11,7 +11,7 @@ ROADMAP.md for what is ported and what is still to come.
 from .types import (BINARY, BOOL, DATE, DATETIME, DOUBLE, ENUM, FLOAT, INT32,
                     INT64, STRING, UINT32, UINT64, DataType, TypeError_)
 from .schema import Attribute, EnumDefinition, SchemaError, TupleSchema
-from .batch import Column, Table, gather_table
+from .batch import Column, Table, concat_tables, gather_table
 from .dictionary import Dictionary
 from . import exprs
 from .exprs import *  # noqa: F401,F403 (expression factory surface)

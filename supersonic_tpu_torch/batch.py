@@ -26,6 +26,9 @@ statistics computed from the host arrays before the upload: per INT32,
 INT64, UINT32, DATE, DATETIME and ENUM column (min, max), and the columns
 whose values are the row position plus a constant (dense primary keys).
 ``ScanTable`` hands them to the planner, so bind never reads the device.
+``from_arrays`` (the constructor of the file readers and the external
+sort) and ``empty`` build on ``from_numpy``; ``concat_tables`` joins the
+live rows of tables, their dictionaries merged.
 """
 from __future__ import annotations
 
@@ -34,8 +37,8 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from .dictionary import encode
-from .schema import SchemaError, TupleSchema
+from .dictionary import Dictionary, encode, merge
+from .schema import Attribute, SchemaError, TupleSchema
 from .types import (DataType, check_column_type, from_carrier,
                     is_variable_length, physical_dtype, to_carrier,
                     torch_dtype)
@@ -132,6 +135,8 @@ class Table:
             raw = arrays[a.name]
             vals, valid = raw if isinstance(raw, tuple) else (raw, None)
             vals = np.ascontiguousarray(vals, dtype=physical_dtype(a.type))
+            if not vals.flags.writeable:  # torch.from_numpy needs it
+                vals = vals.copy()
             if valid is not None:
                 valid = np.ascontiguousarray(valid, dtype=bool)
                 if valid.shape != vals.shape:
@@ -169,6 +174,43 @@ class Table:
         table = Table(schema, columns, n, device, dict(dicts or {}))
         table.stats, table.rowid = _host_stats(schema, host, n)
         return table
+
+    @staticmethod
+    def from_arrays(schema: TupleSchema, values: dict, valids: dict,
+                    num_rows: int, dicts: Optional[dict] = None,
+                    capacity: Optional[int] = None, *,
+                    device="cuda") -> "Table":
+        """Build a Table from host arrays already in each type's physical
+        dtype (no per-row Python work): ``values[name]`` holds ``num_rows``
+        values, ``valids[name]`` an optional bool mask (None: every row
+        valid); a STRING/BINARY column gives its codes and ``dicts[name]``
+        its Dictionary.  The constructor of the file readers and the
+        external sort; the JAX package's ``from_arrays`` with ``device``
+        (the card unless the caller asks for another)."""
+        arrays = {}
+        for a in schema:
+            vals = values[a.name]
+            if len(vals) != num_rows:
+                raise SchemaError("array length != num_rows")
+            valid = valids.get(a.name)
+            if valid is not None and not a.nullable:
+                if not np.asarray(valid)[:num_rows].all():
+                    raise SchemaError(
+                        f"NULL in non-nullable column {a.name!r}")
+                valid = None
+            arrays[a.name] = vals if valid is None else (vals, valid)
+        return Table.from_numpy(schema, arrays, capacity, dicts,
+                                device=device)
+
+    @staticmethod
+    def empty(schema: TupleSchema, capacity: int = 1, *,
+              device="cuda") -> "Table":
+        """A Table of no rows and ``capacity`` zeroed rows on ``device``."""
+        return Table.from_numpy(
+            schema, {a.name: np.zeros(0, physical_dtype(a.type))
+                     for a in schema}, capacity,
+            {a.name: Dictionary(()) for a in schema
+             if is_variable_length(a.type)}, device=device)
 
     @staticmethod
     def from_data(schema: TupleSchema, data: dict,
@@ -296,3 +338,56 @@ def gather_table(table: Table, indices: torch.Tensor, num_rows) -> Table:
         cols[name] = Column(vals, next(gathered) if has_valid else None)
     return Table(table.schema, cols, num_rows, table.device,
                  dict(table.dicts), cap_hint=indices.shape[0])
+
+
+def concat_tables(tables: Sequence[Table]) -> Table:
+    """The live rows of same-schema tables, in order, as one table on the
+    first table's device.  STRING/BINARY dictionaries merge (each table's
+    codes remapped into the merged one through ``take_small``); a column is
+    nullable if it is in any table; the padding rows between the live
+    blocks are compacted away by the compaction kernel.  Port of
+    ``supersonic_tpu/batch.py::concat_tables``."""
+    from .kernels.lut_gather import BoundLut, take_small
+    from .ops.filter import compact_by_mask
+
+    if not tables:
+        raise ValueError("concat_tables needs at least one table")
+    schema = tables[0].schema
+    for t in tables[1:]:
+        if t.schema.names() != schema.names():
+            raise SchemaError("concat over mismatched schemas")
+    dev = tables[0].device
+    dicts: dict = {}
+    remaps: list = [dict() for _ in tables]
+    for a in schema:
+        if not is_variable_length(a.type):
+            continue
+        merged = tables[0].dicts[a.name]
+        maps = [np.arange(max(len(merged), 1), dtype=np.int32)]
+        for i, t in enumerate(tables[1:], start=1):
+            merged, ra, rb = merge(merged, t.dicts[a.name])
+            maps = [ra[m] for m in maps] + [rb]
+        dicts[a.name] = merged
+        for j, m in enumerate(maps):
+            remaps[j][a.name] = m
+    attrs = [Attribute(a.name, a.type,
+                       any(t.schema.lookup(a.name).nullable for t in tables),
+                       a.enum) for a in schema]
+    cols = {}
+    for a in attrs:
+        vals, valid = [], []
+        for t, remap in zip(tables, remaps):
+            c = t.columns[a.name]
+            v = c.values.to(dev)
+            if a.name in remap:
+                v = take_small(BoundLut(remap[a.name]), v)
+            vals.append(v)
+            if a.nullable:
+                valid.append(torch.ones_like(v, dtype=torch.bool)
+                             if c.valid is None else c.valid.to(dev))
+        cols[a.name] = Column(torch.cat(vals),
+                              torch.cat(valid) if a.nullable else None)
+    live = torch.cat([t.row_mask().to(dev) for t in tables])
+    out = Table(TupleSchema(attrs), cols, 0, dev,
+                dicts or dict(tables[0].dicts))
+    return compact_by_mask(out, live, out.capacity)

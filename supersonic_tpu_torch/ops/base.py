@@ -11,6 +11,15 @@ names as the JAX package.  The row counts that ``Spy`` nodes report ride
 the same transfer.  After it, ``execute`` resolves the deferred host work
 the plan registered (``RunContext.deferred``: the byte assembly of CONCAT
 aggregates, ops/host.py).
+
+Host and disk boundaries (the external sort of ``SortWithTempDirPrefix``,
+``HybridGroupAggregate``'s spill) register a lazy leaf at bind: a
+placeholder table fixes the schema and capacity, and its producer runs in
+``prepare_leaves``, before the plan runs, so bind stays free of side
+effects (the reference's hybrid cursor drains its child at the first
+``Next()``, aggregate_groups.cc:332-431).  The JAX package's compiled
+program caches exist for its remote compile and have no counterpart: a
+``compile_plan`` run is reused over same-shaped leaves as it is.
 """
 from __future__ import annotations
 
@@ -19,9 +28,10 @@ from typing import Callable, Optional
 
 import torch
 
-from ..batch import Table
+from ..batch import Column, Table
 from ..exprs.base import EvalContext, EvaluationError
 from ..schema import TupleSchema
+from ..types import torch_dtype
 
 
 class Interrupted(RuntimeError):
@@ -30,8 +40,9 @@ class Interrupted(RuntimeError):
 
 
 class CancellationToken:
-    """Cooperative cancellation, polled at ``execute()`` entry and before
-    the plan runs.  Call ``interrupt()`` from any thread."""
+    """Cooperative cancellation, polled at ``execute()`` entry, before the
+    plan runs, and in the chunk loops of the spilling sort and group-by.
+    Call ``interrupt()`` from any thread."""
 
     __slots__ = ("_interrupted",)
 
@@ -88,19 +99,85 @@ class BoundOperation:
     rowid: set = field(default_factory=set)
 
     def run(self, ctx: RunContext):
-        return self.fn(ctx)
+        out = self.fn(ctx)
+        # a masked bind returns (Table, keep): the table part is checked
+        if _DEBUG_CHECKS:
+            _append_debug_checks(out[0] if isinstance(out, tuple) else out,
+                                 ctx)
+        return out
+
+
+# DCHECK-style validation of every operator output (reference: block.h:
+# 91-94, cursor.h:114-117); off by default, raised through the flags' sync
+_DEBUG_CHECKS = False
+
+
+def set_debug_checks(enabled: bool) -> None:
+    """Check every operator's output on the device (its row count within
+    its capacity, its dictionary codes within their dictionaries) and
+    raise through the flags' host sync; costs device work a node."""
+    global _DEBUG_CHECKS
+    _DEBUG_CHECKS = bool(enabled)
+
+
+def _append_debug_checks(table: Table, ctx: RunContext) -> None:
+    n = torch.as_tensor(table.num_rows, device=table.device)
+    ctx.error_flags.append(("debug: num_rows out of [0, capacity]",
+                            (n < 0) | (n > table.capacity)))
+    live = table.row_mask()
+    for name, d in table.dicts.items():
+        if name not in table.columns:
+            continue
+        c = table.columns[name]
+        ok = live if c.valid is None else (live & c.valid)
+        bad = ok & ((c.values < 0) | (c.values >= max(len(d), 1)))
+        ctx.error_flags.append(
+            (f"debug: dictionary code out of range in {name!r}", bad.any()))
 
 
 class BindContext:
-    """Collects leaf inputs during bind."""
+    """Collects leaf inputs during bind, and the lazy leaves of host and
+    disk boundaries: (leaf index, producer) pairs resolved by
+    ``prepare_leaves`` when the plan runs."""
 
     def __init__(self, cancel: Optional[CancellationToken] = None):
         self.leaves: list[Table] = []
+        self.lazy: list = []
         self.cancel = cancel
 
     def register_leaf(self, table: Table) -> int:
         self.leaves.append(table)
         return len(self.leaves) - 1
+
+    def register_lazy_leaf(self, placeholder: Table, producer) -> int:
+        """Register a host-produced leaf: ``placeholder`` fixes its schema
+        and capacity at bind; ``producer(leaves, cancel) -> Table`` runs in
+        ``prepare_leaves`` and returns a table of the placeholder's
+        capacity and columns."""
+        idx = self.register_leaf(placeholder)
+        self.lazy.append((idx, producer))
+        return idx
+
+
+def placeholder(schema: TupleSchema, capacity: int, dicts: dict) -> Table:
+    """A lazy leaf's stand-in until its producer runs: no rows, and
+    ``capacity`` rows of broadcast zeros that allocate nothing."""
+    def lane(dtype):
+        return torch.zeros(1, dtype=dtype).expand(capacity)
+
+    cols = {a.name: Column(lane(torch_dtype(a.type)),
+                           lane(torch.bool) if a.nullable else None)
+            for a in schema}
+    return Table(schema, cols, 0, "cpu", dict(dicts), cap_hint=capacity)
+
+
+def prepare_leaves(leaves, lazy, cancel=None) -> list:
+    """Resolve the lazy leaves before the run, in bind order: a producer
+    sees the leaves resolved before it (a spill below a spill)."""
+    leaves = list(leaves)
+    for idx, producer in lazy:
+        leaves[idx] = producer(leaves, cancel)
+    return leaves
 
 
 class Operation:
@@ -114,16 +191,29 @@ class Operation:
         return execute(self, check_errors=check_errors, cancel=cancel)
 
 
+def bind_plan(op: Operation, cancel: Optional[CancellationToken] = None):
+    """Bind a plan: (BoundOperation, its leaf tables)."""
+    ctx = BindContext(cancel=cancel)
+    bound = op.bind(ctx)
+    return bound, ctx.leaves
+
+
 def compile_plan(op: Operation, cancel: Optional[CancellationToken] = None):
     """Bind a plan: returns (run, bound, leaves), where
     ``run(leaf_tables) -> (Table, flags, names)``: ``flags`` is a bool
     tensor with one entry per error flag, ``names`` their names.  ``run``
     is reusable over other leaf tables of the same shapes; after each call
     ``run.deferred`` and ``run.spies`` hold that run's deferred host work
-    and Spy reports (``finish`` takes them)."""
+    and Spy reports (``finish`` takes them).  ``run.lazy`` holds the lazy
+    leaves, which ``prepare_leaves`` resolves before a run."""
     bctx = BindContext(cancel=cancel)
     bound = op.bind(bctx)
+    run = _runner(bound, cancel)
+    run.lazy = bctx.lazy
+    return run, bound, bctx.leaves
 
+
+def _runner(bound: BoundOperation, cancel: Optional[CancellationToken]):
     def run(leaf_tables):
         ctx = RunContext(list(leaf_tables), cancel=cancel)
         out = bound.run(ctx)
@@ -135,15 +225,16 @@ def compile_plan(op: Operation, cancel: Optional[CancellationToken] = None):
         run.deferred, run.spies = list(ctx.deferred), list(ctx.spies)
         return out, flags, names
 
-    run.deferred, run.spies = [], []
-    return run, bound, bctx.leaves
+    run.deferred, run.spies, run.lazy = [], [], []
+    return run
 
 
-def raise_flags(flags: torch.Tensor, names: list, spies=()) -> None:
+def raise_flags(flags: torch.Tensor, names: list, spies=(),
+                warn: bool = True) -> None:
     """The host sync: read the flags (and the row counts of ``spies``)
     back in one transfer, report each Spy's count to its listener, and
     raise EvaluationError for every flag that fired ("warning:" flags only
-    warn)."""
+    warn, and only with ``warn``)."""
     counts = [n for _, _, n in spies if not isinstance(n, int)]
     host = []
     if counts:
@@ -157,7 +248,7 @@ def raise_flags(flags: torch.Tensor, names: list, spies=()) -> None:
     for listener, name, n in spies:
         listener.on_result(name, n if isinstance(n, int) else next(it))
     raised = [n for n, f in zip(names, host) if f]
-    for w in raised:
+    for w in raised if warn else ():
         if w.startswith("warning:"):
             import warnings
 
@@ -170,12 +261,14 @@ def raise_flags(flags: torch.Tensor, names: list, spies=()) -> None:
 def execute(op: Operation, check_errors: bool = True,
             cancel: Optional[CancellationToken] = None) -> Table:
     """Bind and run a plan; raises EvaluationError when a device error flag
-    fired (one host sync, at the end)."""
+    fired (one host sync, at the end).  Lazy leaves (host and disk
+    boundaries) resolve before the run."""
     if cancel is not None:
         cancel.check()
     run, _bound, leaves = compile_plan(op, cancel=cancel)
     if cancel is not None:
         cancel.check()
+    leaves = prepare_leaves(leaves, run.lazy, cancel)
     table, flags, names = run(leaves)
     finish(run, flags, names, check_errors, cancel)
     return table
@@ -195,7 +288,33 @@ def finish(run, flags, names, check_errors: bool = True,
         resolve_deferred(run.deferred, cancel=cancel)
 
 
-def not_ported(what: str, item: str):
-    """Raise for a part of the JAX package the port does not cover yet."""
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1 item {item})")
+def materialize_bound(bound: BoundOperation, leaf_tables,
+                      cancel: Optional[CancellationToken] = None) -> Table:
+    """Run a subtree that is already bound on resolved leaf tables: the
+    producer side of a host or disk boundary (``register_lazy_leaf``),
+    whose child bound once in the real BindContext.  Raises for its error
+    flags and resolves its deferred host work."""
+    run = _runner(bound, cancel)
+    table, flags, names = run(list(leaf_tables))
+    raise_flags(flags, names, run.spies, warn=False)
+    if run.deferred:
+        from .host import resolve_deferred
+
+        resolve_deferred(run.deferred, cancel=cancel)
+    return table
+
+
+def materialize_child(op: Operation) -> Table:
+    """Bind a subtree once and run it to a concrete Table: the
+    materialization boundary of host and disk operators (as HashJoin's
+    build drains its rhs in the reference, hash_join.cc:604).  Raises for
+    its error flags."""
+    run, _bound, leaves = compile_plan(op)
+    leaves = prepare_leaves(leaves, run.lazy)
+    table, flags, names = run(leaves)
+    raise_flags(flags, names, run.spies, warn=False)
+    if run.deferred:
+        from .host import resolve_deferred
+
+        resolve_deferred(run.deferred)
+    return table

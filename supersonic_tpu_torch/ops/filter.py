@@ -26,6 +26,21 @@ def compact_arrays(payload: list[torch.Tensor], mask: torch.Tensor,
     return compact_kernel(payload, mask, out_cap)[0]
 
 
+def compaction_indices(mask: torch.Tensor, out_capacity: int):
+    """The stable selection vector of ``mask``'s True rows: (int32
+    indices[out_capacity], past the count the mask's length as an
+    out-of-range sentinel; the 0-d int32 count, at most ``out_capacity``).
+    The reference's PrepareInputRowIds (filter.cc:169-198), by one
+    compaction of the row ids."""
+    from ..kernels.compaction import compact_kernel
+
+    cap = mask.shape[0]
+    ids = torch.arange(cap, dtype=torch.int32, device=mask.device)
+    (idx,), count = compact_kernel([ids], mask, out_capacity)
+    pos = torch.arange(out_capacity, device=mask.device)
+    return torch.where(pos < count, idx, cap), count.to(torch.int32)
+
+
 def compact_by_mask(table: Table, mask: torch.Tensor,
                     out_capacity: int | None = None) -> Table:
     """Move rows where mask is True into a dense prefix."""

@@ -1,6 +1,7 @@
 """Sortable/groupable key encoding.
 
 Port of ``monotone_code``, ``descending_code``, ``key_operands``,
+``_f32_code`` (as ``f32_code``),
 ``group_code_columns`` and ``_check_keyable`` from
 ``supersonic_tpu/ops/keys.py``: every key column maps to a code whose
 order equals the reference comparator's order on the values (sort.cc:
@@ -32,6 +33,15 @@ def monotone_code(values: torch.Tensor, type_: DataType) -> torch.Tensor:
     return values
 
 
+def f32_code(values: torch.Tensor) -> torch.Tensor:
+    """FLOAT -> int32 in the signed IEEE total order of its bits (the JAX
+    package's ``sort._f32_code``): the low 31 bits of a negative word flip,
+    so -0.0 sorts before +0.0 and a NaN sorts by its sign bit and payload
+    (a negative NaN first, a positive one last)."""
+    i = values.view(torch.int32)
+    return i ^ ((i >> 31) & 0x7FFFFFFF)
+
+
 def descending_code(code: torch.Tensor) -> torch.Tensor:
     """Order-reversing transform for DESC keys: bitwise-not for integers,
     negation for floats (NaNs keep sorting last either way)."""
@@ -40,16 +50,20 @@ def descending_code(code: torch.Tensor) -> torch.Tensor:
     return ~code
 
 
-def key_lanes(table, names, ascendings) -> list:
+def key_lanes(table, names, ascendings, float_bits: bool = False) -> list:
     """Per key [null_rank?, code], most significant first: ascending order
     over the tuple is the reference's multi-column order, NULL first
     ascending and last descending (sort.cc:44-47).  The null rank is
-    emitted only for nullable columns, and the code is zeroed under NULL."""
+    emitted only for nullable columns, and the code is zeroed under NULL.
+    ``float_bits`` codes a FLOAT key by ``f32_code`` (``sort_table``'s
+    order, as the JAX package's) instead of ``monotone_code``."""
     lanes = []
     for name, asc in zip(names, ascendings):
         _check_keyable(table, name)
         c = table.columns[name]
-        code = monotone_code(c.values, table.schema.lookup(name).type)
+        type_ = table.schema.lookup(name).type
+        code = (f32_code(c.values) if float_bits and type_ == DataType.FLOAT
+                else monotone_code(c.values, type_))
         if not asc:
             code = descending_code(code)
         if c.valid is not None:
@@ -59,12 +73,14 @@ def key_lanes(table, names, ascendings) -> list:
     return lanes
 
 
-def key_operands(table, names, ascendings, pad_mask=None) -> list:
+def key_operands(table, names, ascendings, pad_mask=None,
+                 float_bits: bool = False) -> list:
     """[pad_rank] + ``key_lanes``, where rows of ``pad_mask`` (default: rows
     past num_rows) rank 1 and sort last."""
     if pad_mask is None:
         pad_mask = ~table.row_mask()
-    return [pad_mask.to(torch.int32)] + key_lanes(table, names, ascendings)
+    return [pad_mask.to(torch.int32)] + key_lanes(table, names, ascendings,
+                                                  float_bits)
 
 
 def _check_keyable(table, name: str) -> None:

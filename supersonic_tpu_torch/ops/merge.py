@@ -16,7 +16,8 @@ STRING/BINARY dictionaries merge at bind (``union.bind_dictionaries``) and
 each child's codes are remapped first, so codes compare as values.  Live
 counts stay on the device.  An order of more compare words than the
 kernel takes (``MAX_KEYS``) concatenates the children and sorts them
-once, stably (``sort_table``).  A UINT64 key column rides the merge as its
+once, stably (``sort_permutation``: monotone codes, so NaN sorts last as
+the JAX merge's ``lax.sort`` does).  A UINT64 key column rides the merge as its
 ``monotone_code`` (the sign bit flipped, an involution) and flips back
 after it.
 """
@@ -26,13 +27,13 @@ from typing import Sequence
 
 import torch
 
-from ..batch import Column, Table
+from ..batch import Column, Table, gather_table
 from ..kernels.merge_sorted import (MAX_KEYS, MergeKey, compare_words,
                                     merge_sorted)
 from ..schema import SchemaError
 from ..types import DataType, u64_key
 from .base import BindContext, BoundOperation, Operation, RunContext
-from .sort import SortOrder, sort_table
+from .sort import SortOrder, sort_permutation
 from .union import bind_dictionaries, remap_codes, union_schema
 
 
@@ -96,7 +97,8 @@ class MergeUnionAll(Operation):
                 rows = rows + t.num_rows
             cat = Table(schema, cols, rows, dev, dicts, cap_hint=out_cap)
             live = torch.cat([t.row_mask() for t in tables])
-            return sort_table(cat, self.order, pad_mask=~live)
+            perm = sort_permutation(cat, self.order, pad_mask=~live)
+            return gather_table(cat, perm.to(torch.int32), rows)
 
         def fn(rctx: RunContext) -> Table:
             tables = [cb.run(rctx) for cb in cbs]

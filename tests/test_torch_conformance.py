@@ -377,3 +377,120 @@ def test_every_factory_is_exported():
     assert names <= set(T.exprs.__all__)
     for n in names | {"get_local_timezone", "set_local_timezone"}:
         assert hasattr(T, n), n
+
+
+def _public(module) -> set:
+    """A module's public names, submodules left out."""
+    return {n for n in dir(module) if not n.startswith("_")
+            and not isinstance(getattr(module, n), types.ModuleType)}
+
+
+def test_top_level_and_ops_names_cover_jax():
+    """The port's top level and ``ops`` export every public name of the
+    JAX package's, apart from submodules (``scan32``, a TPU workaround,
+    is one and stays behind)."""
+    import supersonic_tpu.ops as JO
+
+    assert _public(J) <= _public(T), sorted(_public(J) - _public(T))
+    assert _public(JO) <= _public(T.ops), sorted(_public(JO) - _public(T.ops))
+    assert set(T.ops.__all__) <= _public(T.ops)
+
+
+def _scan_table(ns):
+    """tests/test_core_ops.py's table."""
+    kw = {} if ns is J else {"device": "cpu"}
+    return ns.Table.from_data(
+        ns.TupleSchema.of(("a", ns.INT64), ("b", ns.STRING)),
+        {"a": [1, 2, None, 4, 5], "b": ["x", None, "y", "x", "z"]}, **kw)
+
+
+@pytest.mark.parametrize("cls", ["ScanTableWithSelection",
+                                 "ScanViewWithSelection"])
+def test_scan_with_selection_matches_jax(cls):
+    """tests/test_core_ops.py:91-95, with a repeated id and a row count
+    below the selection's length."""
+    for sel, n in (([4, 0, 2], None), ([1, 1, 3, 0], 3)):
+        got = T.execute(getattr(T, cls)(_scan_table(T), sel, n)).to_pylist()
+        want = J.execute(getattr(J, cls)(_scan_table(J), sel, n)).to_pylist()
+        assert got == want
+    assert [r[0] for r in T.execute(T.ScanTableWithSelection(
+        _scan_table(T), [4, 0, 2])).to_pylist()] == [5, 1, None]
+
+
+@pytest.mark.parametrize("out_cap", [3, 6, 10])
+def test_compaction_indices_match_jax(out_cap):
+    mask = np.array([0, 1, 1, 0, 1, 0, 0, 1], dtype=bool)
+    import jax.numpy as jnp
+
+    idx, count = T.compaction_indices(torch.from_numpy(mask), out_cap)
+    j_idx, j_count = J.compaction_indices(jnp.asarray(mask), out_cap)
+    assert idx.tolist() == np.asarray(j_idx).tolist()
+    assert int(count) == int(j_count) == min(4, out_cap)
+    assert idx.dtype == torch.int32
+
+
+def test_bind_plan_matches_compile_plan():
+    t = _scan_table(T)
+    bound, leaves = T.bind_plan(T.Filter(T.col("a") > T.Const(1),
+                                         T.ScanTable(t)))
+    assert leaves == [t]
+    assert [a.name for a in bound.schema] == ["a", "b"]
+    assert bound.capacity == t.capacity
+
+
+@pytest.fixture
+def debug_checks():
+    T.set_debug_checks(True)
+    yield
+    T.set_debug_checks(False)
+
+
+def test_debug_checks_pass_clean_plans(debug_checks):
+    """tests/test_debug_checks.py's plan: a Sort over a group-by over a
+    filtered join, every node's invariants holding, the JAX package's
+    rows."""
+    def plan(ns):
+        rng = np.random.default_rng(3)
+        n = 300
+        kw = {} if ns is J else {"device": "cpu"}
+        t = ns.Table.from_data(
+            ns.TupleSchema.of(("k", ns.INT64, False), ("v", ns.INT64, True),
+                              ("s", ns.STRING, True)),
+            {"k": rng.integers(0, 9, n),
+             "v": [None if x < 0.1 else int(x * 50) for x in rng.random(n)],
+             "s": [None if x < 0.1 else f"w{int(x * 6)}"
+                   for x in rng.random(n)]}, **kw)
+        dim = ns.Table.from_data(
+            ns.TupleSchema.of(("pk", ns.INT64, False), ("w", ns.INT64, False)),
+            {"pk": np.arange(9), "w": np.arange(9) * 7}, **kw)
+        return ns.Sort(["k"], ns.GroupAggregate(
+            ["k"], [ns.AggSpec(ns.Aggregation.SUM, "v", "sv"),
+                    ns.AggSpec(ns.Aggregation.MAX, "s", "ms")],
+            ns.HashJoin(ns.JoinType.INNER, ["k"], ["pk"],
+                        ns.Filter(ns.col("v") > 5, ns.ScanTable(t)),
+                        ns.ScanTable(dim), ns.KeyUniqueness.UNIQUE)))
+
+    J.set_debug_checks(True)
+    try:
+        want = J.execute(plan(J)).to_pylist()
+    finally:
+        J.set_debug_checks(False)
+    assert T.execute(plan(T)).to_pylist() == want
+
+
+def _corrupted():
+    t = T.Table.from_data(T.TupleSchema.of(("s", T.STRING, False)),
+                          {"s": ["x", "y"]}, device="cpu")
+    c = t.columns["s"]
+    t.columns["s"] = T.Column(c.values + 99, c.valid)
+    return T.Filter(T.Equal(T.col("s"), T.Const("x")), T.ScanTable(t))
+
+
+def test_debug_checks_catch_a_corrupted_dictionary_code(debug_checks):
+    with pytest.raises(T.exprs.base.EvaluationError,
+                       match="dictionary code out of range"):
+        T.execute(_corrupted())
+
+
+def test_debug_checks_are_off_by_default():
+    T.execute(_corrupted())  # the bad code passes through the clipped gather

@@ -1,13 +1,15 @@
 """The port against the real C++ engine's output (the goldens of
-tests/test_golden.py): the inputs and outputs are read with the JAX
-package's ``read_reference_file`` and moved into the port's tables with
-``from_numpy``; the port's plan must give the C++ engine's rows, compared
-by tests/test_golden.py's rule (ordered, every value and NULL exact).
+tests/test_golden.py): the inputs and outputs are read with the port's own
+``read_reference_file``, so these cases need no JAX (one test holds that
+reader against the JAX package's over every golden file); the port's plan
+must give the C++ engine's rows, compared by tests/test_golden.py's rule
+(ordered, every value and NULL exact).
 
-The golden cases that need features the port does not have yet are listed
-in ROADMAP.md (queue 1 item 10).  The group-by and join cases compare
-ordered by their key, as tests/test_golden.py does (the row order of a
-hash group-by or hash join is the engine's)."""
+Every golden case of tests/test_golden.py has its port counterpart here,
+``proto_expr`` through the port's ``build_expression_from_proto_bytes``.
+The group-by and join cases compare ordered by their key, as
+tests/test_golden.py does (the row order of a hash group-by or hash join
+is the engine's)."""
 from __future__ import annotations
 
 import pathlib
@@ -19,6 +21,9 @@ import torch
 import supersonic_tpu as J
 import supersonic_tpu_torch as T
 from supersonic_tpu.io.file_io import read_reference_file
+from supersonic_tpu_torch.io import file_io as TF
+from supersonic_tpu_torch.io.serialization import (
+    build_expression_from_proto_bytes)
 
 torch.set_num_threads(1)
 
@@ -62,32 +67,58 @@ def _manifest(case: str):
     return found
 
 
-def _to_port(jt, cols) -> "T.Table":
-    """A JAX package table as a port table on the CPU."""
-    n = int(jt.num_rows)
-    arrays, dicts = {}, {}
-    for name, _, nullable in cols:
-        c = jt.columns[name]
-        vals = np.array(c.values)[:n]  # a writable copy for torch
-        arrays[name] = ((vals, np.array(c.valid)[:n]) if nullable
-                        and c.valid is not None else vals)
-        if name in jt.dicts:
-            dicts[name] = T.Dictionary(tuple(jt.dicts[name].values))
-    return T.Table.from_numpy(_schema(T, cols), arrays, None, dicts,
-                              device="cpu")
+def _read(f: str, cols) -> "T.Table":
+    """A golden file through the port's reader, on the CPU."""
+    return TF.read_reference_file(_schema(T, cols), str(GOLDEN / f),
+                                  device="cpu")
 
 
 def _inputs(case: str) -> list:
-    return [_to_port(read_reference_file(_schema(J, cols), str(GOLDEN / f)),
-                     cols)
-            for f, cols in _manifest(case)["in"]]
+    return [_read(f, cols) for f, cols in _manifest(case)["in"]]
 
 
 def _golden_out(case: str):
     f, rows, cols = _manifest(case)["out"]
-    t = read_reference_file(_schema(J, cols), str(GOLDEN / f))
+    t = _read(f, cols)
     assert int(t.num_rows) == rows
     return t
+
+
+def _files():
+    """(file, cols) of every input and output file of the manifest."""
+    for line in (GOLDEN / "manifest.txt").read_text().splitlines():
+        f = line.split(" ")
+        if f[0] == "in":
+            yield f[3], _cols(" ".join(f[5:]))
+        elif f[0] == "out":
+            yield f[2], _cols(" ".join(f[4:]))
+
+
+def test_both_readers_give_equal_arrays_for_every_golden_file():
+    """The port's read_reference_file and the JAX package's read every
+    golden file to the same values (bit for bit), NULL masks and
+    dictionaries."""
+    seen = 0
+    for f, cols in _files():
+        got = _read(f, cols)
+        want = read_reference_file(_schema(J, cols), str(GOLDEN / f))
+        n = int(want.num_rows)
+        assert int(got.num_rows) == n, f
+        for name, typ, _ in cols:
+            g, w = got.columns[name], want.columns[name]
+            gv = T.types.from_carrier(g.values[:n].numpy(),
+                                      getattr(T.DataType, typ))
+            wv = np.asarray(w.values)[:n]
+            assert gv.dtype == wv.dtype and gv.tobytes() == wv.tobytes(), \
+                (f, name)
+            gm = np.ones(n, bool) if g.valid is None else g.valid[:n].numpy()
+            wm = np.ones(n, bool) if w.valid is None else \
+                np.asarray(w.valid)[:n]
+            assert np.array_equal(gm, wm), (f, name)
+            if name in want.dicts:
+                assert got.dicts[name].values == want.dicts[name].values
+        seen += 1
+    assert seen == len(list((GOLDEN).glob("*.dat")))
 
 
 def _host_columns(table):
@@ -186,8 +217,9 @@ def test_golden_bench_merge():
 
 
 def test_golden_inputs_survive_the_move_into_the_port():
-    """The STRING inputs the goldens read come through from_numpy with
-    their dictionaries, rows and NULLs intact."""
+    """The STRING inputs the goldens read come through the port's reader
+    with their dictionaries, rows and NULLs as the JAX package reads
+    them."""
     for case in ("bench_sort", "bench_merge"):
         for (f, cols), t in zip(_manifest(case)["in"], _inputs(case)):
             jt = read_reference_file(_schema(J, cols), str(GOLDEN / f))
@@ -359,6 +391,18 @@ def test_golden_bench_compute():
         (c("col0") * (T.Sin(c("col2")) + T.Exp(c("col1")))).as_("expr"),
         T.ScanTable(t)))
     assert_tables_match(out, _golden_out("bench_compute"), float_rtol=1e-13)
+
+
+def test_golden_proto_expression_interop():
+    """The ExpressionDescription bytes the reference's
+    BuildExpressionFromProto evaluated (refbuild/golden_dump.cc::
+    CaseProtoExpr) through the port's deserializer: a + b * 2.0, pure
+    float arithmetic, bit for bit."""
+    (t,) = _inputs("proto_expr")
+    expr = build_expression_from_proto_bytes(
+        (GOLDEN / "proto_expr.pb").read_bytes())
+    out = T.execute(T.Compute(expr.as_("r"), T.ScanTable(t)))
+    assert_tables_match(out, _golden_out("proto_expr"))
 
 
 def test_golden_expr_mix():

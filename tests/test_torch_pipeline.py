@@ -278,7 +278,7 @@ def _counts(ns, t):
     lambda ns, t, d: ns.HashJoin(ns.JoinType.INNER, ["pk"], ["c"],
                                  ns.ScanTable(d), _counts(ns, t),
                                  allow_dense_lookup=False),
-    # the spill of HybridGroupAggregate under a memory quota is item 15
+    # HybridGroupAggregate spilling under a memory quota (item 15)
     lambda ns, t, d: ns.HybridGroupAggregate(["pk"], [ns.AggSpec(
         ns.Aggregation.COUNT, None, "c")], ns.ScanTable(d),
         ns.GroupAggregateOptions(memory_quota=100)),
@@ -288,19 +288,13 @@ def _counts(ns, t):
         ns.Compute([ns.col("g"), ns.col("v"),
                     ns.Const("x", ns.STRING).as_("w")], ns.ScanTable(d))),
 ], ids=["left_outer", "not_unique", "non_dense_group_by", "sum_widening"])
-def test_outside_the_slice_raises_not_implemented(make, request):
-    """What is still outside the port raises NotImplementedError naming its
-    ROADMAP.md item; the cases this test pinned before their slice came
-    give the JAX package's rows."""
+def test_outside_the_slice_raises_not_implemented(make):
+    """The cases this test pinned as outside the port, each until its
+    slice came, give the JAX package's rows."""
     fact, dim = headline_data(FACT, DIM)
     dim = dict(dim, pk=dim["pk"] * 4, v=np.ones(DIM, np.float32))
     cols = DIM_SCHEMA + (("v", "FLOAT", False),)
     tf, td = (torch_table(T, FACT_SCHEMA, fact), torch_table(T, cols, dim))
-    # pk spans 4093 slots: past the dense group-by's 2048
-    if request.node.callspec.id == "non_dense_group_by":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            T.execute(make(T, tf, td))
-        return
     jf, jd = jax_table(J, FACT_SCHEMA, fact), jax_table(J, cols, dim)
     want = J.execute(make(J, jf, jd))
     got = T.execute(make(T, tf, td))
