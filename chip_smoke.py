@@ -98,7 +98,19 @@ take the merge probe, STRING keys and the outer join types:
      merge), against numpy and the plan without a quota; (ac)
      bench_ops.py:143-145's "sort 8M by (g,v)" as a SortWithTempDirPrefix
      under an eighth of its working set (8 runs), against the in-memory
-     Sort; each with its median of 5, its launches and its disk bytes
+     Sort; each with its median of 5, its launches and its disk bytes.
+     Then the tooling and distribution: (ad) the benchmark harness
+     (``bench.benchmark_plan``, CUDA events) over the headline plan, every
+     node's rows against numpy and the join's build/probe split, its
+     ``format_stats`` table; (ae) the headline twin of bench.py
+     (``bench/headline.py``) at its own 8M x 1M, its JSON line; (af)
+     ``entry()`` on the card against ``entry(device="cpu")``; (ag)
+     distribution at world size 1 over NCCL on this card (a failed NCCL
+     initialisation fails the smoke): ``parallel.dryrun(1)``, then the
+     headline through ``dist_map`` (Filter), ``dist_hash_join``,
+     ``dist_group_aggregate`` and ``dist_sort`` at 100M x 1M against the
+     single-card headline in order, its median of 5, its launches and its
+     probe exchange's bytes
   5. the median times of the headline query (under both bindings, and
      its aggregate in insertion order under both), of join (a), of merges
      (d) and (e), of group-bys (g), (h) and (j), of joins (k)-(n) and of
@@ -3197,6 +3209,151 @@ def spill_phases(torch, T, dev, drive, smi, fact, fact_t, str_dim_t, fg):
             f"order, the same multiset")
 
 
+def stat_rows(node):
+    """(name, rows_processed) of every node of a harness tree, in
+    pre-order."""
+    out = [(node.name, node.rows_processed)]
+    for k in node.children:
+        out += stat_rows(k)
+    return out
+
+
+def tooling_phases(torch, T, dev, smi, total, fact, dim, fact_t, dim_t):
+    """Paths (ad)-(ag), each from zeroed launch counters (added to
+    ``total``) and against numpy: (ad) the benchmark harness over the
+    headline plan at 100M x 1M, every node's rows equal to numpy's; (ae)
+    the headline twin at its own 8M x 1M, its JSON line; (af) ``entry()``
+    on the card against ``entry(device="cpu")``; (ag) distribution at
+    world size 1 over NCCL on this card: ``dryrun(1)``, then the headline
+    through ``dist_map`` (Filter), ``dist_hash_join``,
+    ``dist_group_aggregate`` and ``dist_sort`` at 100M x 1M against the
+    single-card headline, its median of 5, launches and exchange bytes.
+    The process group is destroyed at the end.  Returns the summary."""
+    from supersonic_tpu_torch import kernels
+    from supersonic_tpu_torch import parallel as D
+    from supersonic_tpu_torch.bench import benchmark_plan, format_stats
+    from supersonic_tpu_torch.bench import headline as H
+    from supersonic_tpu_torch.entry import entry
+    from supersonic_tpu_torch.parallel import dist as DD
+
+    start = time.perf_counter()
+
+    def counted(label, fn, needs):
+        """Run ``fn`` from zeroed counters; every kernel in ``needs``
+        must have launched."""
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = dict(kernels.launches)
+        for k in got:
+            total[k] += got[k]
+        log(f"main path launches, {label}: {got}")
+        for k in needs:
+            assert got[k] > 0, f"{label} did not launch {k}"
+        return out, got
+
+    # (ad) the harness: per-node rows and times of the headline plan
+    stats, _ = counted("(ad) benchmark_plan of the headline query",
+                       lambda: benchmark_plan(headline_plan(T, fact_t,
+                                                            dim_t)),
+                       ("compaction", "lut_gather", "segment_reduce"))
+    keep = fact["v"] > 0.5
+    n_keep = int(keep.sum())
+    groups = int(np.unique(dim["g"][fact["fk"][keep]]).size)
+    want = [("Sort", groups), ("GroupAggregate", groups),
+            ("HashJoin", n_keep), ("Filter", n_keep),
+            ("ScanTable", FACT_ROWS), ("ScanTable", DIM_ROWS)]
+    assert stat_rows(stats) == want, f"(ad): {stat_rows(stats)} != {want}"
+    join = stats.children[0].children[0]
+    assert join.index_set_up_time_us is not None \
+        and join.matching_time_us is not None, "(ad): no join phase split"
+    log(f"(ad) format_stats of the headline query, {FACT_ROWS} x "
+        f"{DIM_ROWS} (CUDA events, best of 3; card: {smi}):\n"
+        f"{format_stats(stats)}")
+
+    # (ae) the headline twin, bench.py's 8M x 1M
+    rec, _ = counted("(ae) bench.headline", lambda: H.measure(
+        device=dev, log=log), ("segment_reduce", "lut_gather"))
+    log(f"(ae) headline twin JSON line: {json.dumps(rec)} (card: {smi})")
+
+    # (af) entry() on the card
+    (sv, n, flags), _ = counted("(af) entry", lambda: (lambda fn, a: fn(*a))(
+        *entry(dev)), ("lut_gather", "segment_reduce"))
+    cpu_sv, cpu_n, _ = (lambda fn, a: fn(*a))(*entry("cpu"))
+    assert int(n) == int(cpu_n) == GROUPS and not bool(flags.any()), \
+        "(af): rows or flags"
+    np.testing.assert_allclose(sv[:int(n)].cpu().numpy(),
+                               cpu_sv[:int(n)].numpy(), rtol=1e-5)
+    log(f"(af) entry() on {dev}: sv {tuple(sv.shape)} {sv.dtype}, num_rows "
+        f"{tuple(torch.as_tensor(n).shape)} = {int(n)}, flags "
+        f"{tuple(flags.shape)}; sv equals entry(device=\"cpu\")'s (rtol 1e-5)")
+
+    # (ag) distribution at world size 1 over NCCL (no fallback: a failed
+    # NCCL initialisation fails the smoke)
+    D.initialize(f"localhost:{D.multihost.free_port()}", 1, 0, device="cuda")
+    try:
+        assert torch.distributed.get_backend() == "nccl", "(ag): backend"
+        t0 = time.perf_counter()
+        _, dry = counted("(ag) dryrun(1)", lambda: D.dryrun(1),
+                         ("compaction", "lut_gather"))
+        dry_s = time.perf_counter() - t0
+        mesh = D.make_mesh(1)
+        opts = T.GroupAggregateOptions(estimated_result_row_count=GROUPS)
+
+        def dist_headline(stats=None):
+            dfact = D.distribute_table(fact_t, mesh)
+            ddim = D.distribute_table(dim_t, mesh, keys=["pk"])
+            filtered = D.dist_map(mesh, lambda t: D.run_local_plan(
+                lambda tt: T.Filter(T.col("v") > T.Const(0.5, T.FLOAT),
+                                    T.ScanTable(tt)), t), dfact)
+            if stats is not None:  # the join's probe exchange, counted
+                D.shuffle(mesh, filtered, DD._key_dest_fn(["fk"], 1),
+                          stats_out=stats)
+            joined = D.dist_hash_join(
+                mesh, T.JoinType.INNER, ["fk"], ["pk"], filtered, ddim,
+                T.KeyUniqueness.UNIQUE,
+                lhs_projector=T.Projector.named("v"),
+                rhs_projector=T.Projector.named("g"))
+            agg = D.dist_group_aggregate(
+                mesh, joined, ["g"],
+                [T.AggSpec(T.Aggregation.SUM, "v", "sv"),
+                 T.AggSpec(T.Aggregation.COUNT, None, "c")], opts)
+            return D.collect_table(D.dist_sort(
+                mesh, agg, [T.SortKey("sv", ascending=False)]), mesh)
+
+        ex = {}
+        out, dist_launches = counted(
+            "(ag) distributed headline", lambda: dist_headline(ex),
+            ("compaction", "lut_gather"))
+        n_ag = check_headline(out, fact, dim)
+        single = T.execute(headline_plan(T, fact_t, dim_t)).to_pylist()
+        got = out.to_pylist()
+        assert [(r[0], r[2]) for r in got] == [(r[0], r[2]) for r in single], \
+            "(ag): keys, counts or order differ from the single-card headline"
+        np.testing.assert_allclose([r[1] for r in got], [r[1] for r in single],
+                                   rtol=SUM_RTOL)
+        del out
+        ag_ms, ag_all = median_of(dist_headline)
+        log(f"(ag) distributed headline, {FACT_ROWS} x {DIM_ROWS} at world "
+            f"size 1 over NCCL: median {ag_ms:.3f} ms over {REPEATS} runs "
+            f"after a warm-up (all: {', '.join(f'{x:.3f}' for x in ag_all)}; "
+            f"distribute_table to collect_table); launches {dist_launches}; "
+            f"the probe exchange moved {ex['total_bytes']} bytes "
+            f"({ex['row_bytes']} a row, sent_rows {ex['sent_rows'].tolist()}, "
+            f"off the card {ex['offmesh_bytes']}); dryrun(1) "
+            f"{dry_s:.1f} s, launches {dry}; card: {smi}")
+    finally:
+        torch.distributed.destroy_process_group()
+    log(f"(ad)-(ag): {time.perf_counter() - start:.1f} s on the host clock")
+    return (f"(ad)-(ag) match numpy: (ad) every node's rows ({want}), the "
+            f"join's phase split; (ae) {rec['metric']} {rec['value']:.1f} "
+            f"{rec['unit']}, {rec['vs_baseline']:.3f}x numpy, result checked; "
+            f"(af) entry() equals the CPU's; (ag) dryrun(1) and the "
+            f"distributed headline's {n_ag} groups equal the single-card "
+            f"headline's in order")
+
+
 def main():
     import torch
 
@@ -3552,6 +3709,10 @@ def main():
 
     # (aa)-(ac): the columnar files, the spilling group-by and sort
     log(spill_phases(torch, T, dev, drive, smi, fact, fact_t, str_dim_t, fg))
+
+    # (ad)-(ag): the harness, the twins of bench.py and __graft_entry__.py,
+    # distribution at world size 1
+    log(tooling_phases(torch, T, dev, smi, total, fact, dim, fact_t, dim_t))
 
     # 5. times, host clock around execute (which ends in a sync)
     def median_ms(plan_fn, label, size):

@@ -60,3 +60,31 @@ def _fold32(code: torch.Tensor) -> torch.Tensor:
     if code.dtype == torch.int64:
         return (code ^ (code >> 32)).to(torch.int32)
     return code.to(torch.int32)
+
+
+def combine_hash(codes: list[torch.Tensor],
+                 null_ranks: list | None = None) -> torch.Tensor:
+    """uint32 row hash (int32 bits) over several key-code columns,
+    NULL-aware: ``null_ranks`` entries may be None for non-nullable
+    columns; a NULL (rank 0) contributes 0xdeadbabe."""
+    h = torch.zeros(codes[0].shape[0], dtype=torch.int32,
+                    device=codes[0].device)
+    for i, c in enumerate(codes):
+        term = _mix32(_fold32(c))
+        if null_ranks is not None and null_ranks[i] is not None:
+            term = torch.where(null_ranks[i] == 0,
+                               torch.full_like(term, NULL_HASH), term)
+        h = h * 29 + term
+    return _mix32(h)
+
+
+def hash_of_pairs(pairs) -> torch.Tensor:
+    """Row hash from ``ops.keys.group_code_columns``' (null_rank or None,
+    code) pairs."""
+    return combine_hash([c for _, c in pairs], [nr for nr, _ in pairs])
+
+
+def partition_of(h: torch.Tensor, num_partitions: int) -> torch.Tensor:
+    """The partition (int32) of each row hash: its uint32 value modulo
+    ``num_partitions``, as the JAX package computes it."""
+    return (as_u32(h) % num_partitions).to(torch.int32)

@@ -32,6 +32,13 @@ def test_import_leaves_jax_out():
         "supersonic_tpu_torch.exprs.tz, supersonic_tpu_torch.exprs.stateful, "
         "supersonic_tpu_torch.exprs.hashing, "
         "supersonic_tpu_torch.parallel.hashing, "
+        "supersonic_tpu_torch.parallel, supersonic_tpu_torch.parallel.dist, "
+        "supersonic_tpu_torch.parallel.multihost, "
+        "supersonic_tpu_torch.bench, supersonic_tpu_torch.bench.harness, "
+        "supersonic_tpu_torch.bench.headline, supersonic_tpu_torch.entry, "
+        "supersonic_tpu_torch.testing, "
+        "supersonic_tpu_torch.testing.operation_testing, "
+        "supersonic_tpu_torch.reference.ref_engine, "
         "supersonic_tpu_torch.ops.segscan; "
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'supersonic_tpu' "
@@ -66,3 +73,17 @@ def test_kernel_sources_are_packaged():
             "segment_reduce.cu", "spread.cu", "merge_sorted.cu"} <= names
     pyproject = (REPO / "pyproject.toml").read_text()
     assert '"supersonic_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in pyproject
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py runs on the card's machine, which has no JAX."""
+    for node in ast.walk(ast.parse((REPO / "chip_smoke.py").read_text())):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods = [node.module]
+        else:
+            continue
+        for m in mods:
+            assert m.split(".")[0] not in ("jax", "jaxlib", "supersonic_tpu"), \
+                f"chip_smoke.py:{node.lineno} imports {m}"
