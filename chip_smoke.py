@@ -110,7 +110,22 @@ take the merge probe, STRING keys and the outer join types:
      headline through ``dist_map`` (Filter), ``dist_hash_join``,
      ``dist_group_aggregate`` and ``dist_sort`` at 100M x 1M against the
      single-card headline in order, its median of 5, its launches and its
-     probe exchange's bytes
+     probe exchange's bytes.  Then the twins of the JAX side's programs at
+     their own sizes, each plan from zeroed launch counters, its rows
+     checked by the twin's numpy check, its best and median of 5 printed:
+     (ah) ``bench/ops.py``'s fifteen plans of bench_ops.py at 8M x 1M
+     ("join 8M x 1M (merge probe)" through the merge probe, the plain
+     join not); (ai) ``bench/configs.py``'s configs 2-4 of
+     scripts/bench_configs.py (10M rows into 50 and ~3.9M keys, a Sort of
+     100M rows, a join of 100M x 1M), freed one after another; (aj)
+     ``bench/stress_edges.py``'s capacity edges at full size (17M rows,
+     NOT_UNIQUE joins at 95% and 93% of out_capacity, overflow flags
+     read); (ak) ``examples/operation_example.py``'s five workloads at
+     100k rows under the harness, DOT files written; (al)
+     ``bench/dist.py``'s ``run`` and ``analyze`` at world size 1 over
+     NCCL at 1M x 100k: the rows equal the single-card plan's and
+     numpy's, the efficiency is null, the exchanges equal EXCHANGE.json's
+     P = 1 record
   5. the median times of the headline query (under both bindings, and
      its aggregate in insertion order under both), of join (a), of merges
      (d) and (e), of group-bys (g), (h) and (j), of joins (k)-(n) and of
@@ -3354,6 +3369,217 @@ def tooling_phases(torch, T, dev, smi, total, fact, dim, fact_t, dim_t):
             f"headline's in order")
 
 
+# --- paths (ah)-(al): the twins of bench_ops.py, scripts/bench_configs.py,
+# scripts/stress_edges.py, examples/operation_example.py and bench_dist.py --
+
+OPS_SIZE = (8_000_000, 1_000_000)               # (ah): bench_ops.py's n, m
+CONFIG_SIZE = (10_000_000, 100_000_000, 1_000_000)  # (ai): n10, n100, m
+STRESS_SMALL = False                            # (aj): full size, 17M rows
+EXAMPLE_ROWS = 100_000                          # (ak): its default rows
+DIST_SIZE = (1_000_000, 100_000)                # (al): EXCHANGE.json's
+# kernels each plan must launch at these sizes
+OPS_NEEDS = {
+    "filter": ("compaction",), "filter_f64": ("compaction",),
+    "groupby": ("segment_reduce",), "groupby_hi": ("compaction",),
+    "sort": ("lut_gather",), "join": ("compaction", "lut_gather"),
+    "join_merge": ("compaction", "lut_gather"),
+    "join_multi": ("compaction", "lut_gather", "spread"),
+    "join_wide": ("compaction", "lut_gather"),
+    "join_dup8": ("compaction", "lut_gather", "spread"),
+    "join_left": ("lut_gather",), "groupby_str": ("segment_reduce",),
+    "compute": (), "join_str": ("compaction", "lut_gather"),
+    "merge_union": ("merge_sorted",)}
+CONFIG_NEEDS = {"config2_50": ("segment_reduce",),
+                "config2_hi": ("compaction", "lut_gather"),
+                "config3_sort": ("lut_gather",),
+                "config4_join": ("compaction", "lut_gather")}
+
+
+def twin_line(tag, label, t, rows, smi):
+    """A twin's timing: best and median of its timed runs on the host
+    clock, best CUDA-event time, the first run."""
+    dev = "" if t.device_s is None else \
+        f", CUDA events best {t.device_s * 1e3:.3f} ms"
+    return (f"{tag} {label}: best {t.host_s * 1e3:.3f} ms, median "
+            f"{statistics.median(t.all_s) * 1e3:.3f} ms of {len(t.all_s)} "
+            f"(all: {', '.join(f'{x * 1e3:.3f}' for x in t.all_s)}){dev}; "
+            f"first run {t.first_s * 1e3:.1f} ms; "
+            f"{rows / t.host_s / 1e6:.1f} M rows/s; card: {smi}")
+
+
+def twin_phases(torch, T, dev, smi, total):
+    """Paths (ah)-(al), each plan from zeroed launch counters (added to
+    ``total``) and against numpy: (ah) the fifteen plans of
+    ``bench/ops.py`` at 8M x 1M (join_merge through the merge probe, the
+    plain join not); (ai) the four configs of ``bench/configs.py`` at 10M,
+    100M and 100M x 1M; (aj) ``bench/stress_edges.py``'s three cases at
+    full size, overflow flags off; (ak) ``examples/operation_example.py``'s
+    five workloads at 100k rows, their DOT files written; (al)
+    ``bench/dist.py``'s ``run`` and ``analyze`` at world size 1 over NCCL at
+    1M x 100k, the result rows equal to the single-card plan's and numpy's,
+    the exchanges equal to ``EXCHANGE.json``'s P = 1 record.  Returns the
+    summary."""
+    import contextlib
+    import io
+    import tempfile
+
+    from supersonic_tpu_torch import kernels
+    from supersonic_tpu_torch import parallel as D
+    from supersonic_tpu_torch.bench import configs as C
+    from supersonic_tpu_torch.bench import dist as BD
+    from supersonic_tpu_torch.bench import headline as H
+    from supersonic_tpu_torch.bench import ops as O
+    from supersonic_tpu_torch.bench import stress_edges as SE
+    from supersonic_tpu_torch.examples import operation_example as OE
+    from supersonic_tpu_torch.ops import hash_join as HJ
+
+    start = time.perf_counter()
+    phase = {}  # tag -> launches summed over the phase's counted runs
+
+    def counted(label, tag, fn, needs):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = dict(kernels.launches)
+        sums = phase.setdefault(tag, dict.fromkeys(got, 0))
+        for k in got:
+            total[k] += got[k]
+            sums[k] += got[k]
+        log(f"main path launches, {label}: {got}")
+        for k in needs:
+            assert got[k] > 0, f"{label} did not launch {k}"
+        return out
+
+    def phase_done(tag, t0):
+        log(f"{tag}: {time.perf_counter() - t0:.1f} s on the host clock; "
+            f"launches {phase[tag]}")
+
+    # (ah) bench_ops.py's fifteen plans
+    t0 = time.perf_counter()
+    data = O.build_data(*OPS_SIZE)
+    plans = O.build_plans(T, device=dev, data=data)
+    log(f"(ah) data and tables, {OPS_SIZE[0]} x {OPS_SIZE[1]}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    merge_probes = []
+    orig = HJ._merge_probe
+
+    def merge_probe(*a, **kw):
+        merge_probes.append(1)
+        return orig(*a, **kw)
+
+    HJ._merge_probe = merge_probe
+    try:
+        for key, (label, plan, rows) in plans.items():
+            before = len(merge_probes)
+            out = counted(f"(ah) {label}", "(ah)", lambda: T.execute(plan),
+                          OPS_NEEDS[key])
+            if key in ("join", "join_merge"):
+                took = len(merge_probes) > before
+                assert took == (key == "join_merge"), \
+                    f"(ah) {key}: merge probe taken: {took}"
+            n = O.check(key, out, data)
+            del out
+            log(twin_line("(ah)", label, O.time_plan(T, plan, REPEATS), rows,
+                          smi) + f"; {n} rows match numpy")
+    finally:
+        HJ._merge_probe = orig
+    del data, plans
+    phase_done("(ah)", t0)
+
+    # (ai) scripts/bench_configs.py's configs 2-4, one at a time
+    t0 = time.perf_counter()
+    for key, label, plan, rows, data in C.build_configs(T, *CONFIG_SIZE,
+                                                        device=dev):
+        out = counted(f"(ai) {label}", "(ai)", lambda: T.execute(plan),
+                      CONFIG_NEEDS[key])
+        n = C.check(key, out, data)
+        del out
+        log(twin_line("(ai)", label, O.time_plan(T, plan, REPEATS), rows,
+                      smi) + f"; {n} rows match numpy")
+        del plan, data
+    phase_done("(ai)", t0)
+
+    # (aj) the capacity edges, each case checked by the twin
+    t0 = time.perf_counter()
+    stress = counted("(aj) stress_edges", "(aj)",
+                     lambda: SE.main(STRESS_SMALL, dev, log),
+                     ("compaction", "lut_gather", "spread"))
+    phase_done("(aj)", t0)
+
+    # (ak) the reference's example workloads under the harness
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dot_") as tmp:
+        stats = counted("(ak) operation_example", "(ak)",
+                        lambda: OE.main(EXAMPLE_ROWS, tmp, dev, log),
+                        ("compaction", "lut_gather", "merge_sorted"))
+        for name in OE.NAMES:
+            dot = (pathlib.Path(tmp) / f"{name}.dot").read_text()
+            assert dot.startswith(f'digraph "{name}"'), f"(ak) {name}.dot"
+    ak_rows = {k: s.rows_processed for k, s in stats.items()}
+    ak_ms = {k: round(s.subtree_time_us / 1e3, 3) for k, s in stats.items()}
+    log(f"(ak) operation_example, {EXAMPLE_ROWS} rows: rows {ak_rows}; "
+        f"whole-plan ms (CUDA events, one run after a warm-up) {ak_ms}; "
+        f"each workload matches numpy, DOT written; card: {smi}")
+    phase_done("(ak)", t0)
+
+    # (al) bench_dist.py's run and analyze at world size 1 (no fallback: a
+    # failed NCCL initialisation fails the smoke)
+    t0 = time.perf_counter()
+    record = json.loads((pathlib.Path(__file__).resolve().parent
+                         / "EXCHANGE.json").read_text())
+    assert (record["fact_rows"], record["dim_rows"]) == DIST_SIZE
+    D.initialize(f"localhost:{D.multihost.free_port()}", 1, 0,
+                 device=dev.type)
+    printed = io.StringIO()
+    try:
+        if dev.type == "cuda":
+            assert torch.distributed.get_backend() == "nccl", "(al): backend"
+        with contextlib.redirect_stdout(printed):
+            run = counted("(al) bench.dist run", "(al)", lambda: BD.run(
+                *DIST_SIZE, 1, dev, reps=REPEATS, log=log),
+                ("compaction", "lut_gather"))
+            ana = counted("(al) bench.dist analyze", "(al)",
+                          lambda: BD.analyze(*DIST_SIZE, 1, dev,
+                                             reps=REPEATS, out=None,
+                                             log=log),
+                          ("compaction", "lut_gather"))
+    finally:
+        torch.distributed.destroy_process_group()
+        for ln in printed.getvalue().splitlines():
+            log(f"(al) {ln}")
+    assert run["record"]["value"] is None, "(al): efficiency at one rank"
+    fact, dim = H.build_data(*DIST_SIZE)
+    sums, counts, _ = H.numpy_pipeline(fact, dim)
+    single = T.execute(BD.local_plan(
+        T, *H.build_tables(T, fact, dim, dev))).to_pylist()
+    got = run["per_P"][1]["rows"]
+    want = [(k, int(counts[k])) for k in np.flatnonzero(counts)]
+    assert [(r[0], r[2]) for r in got] == want, "(al): keys or counts"
+    assert [(r[0], r[2]) for r in single] == want, "(al): single-card plan"
+    np.testing.assert_allclose([r[1] for r in got], sums[counts > 0],
+                               rtol=SUM_RTOL)
+    np.testing.assert_allclose([r[1] for r in got], [r[1] for r in single],
+                               rtol=SUM_RTOL)
+    assert ana["per_P"] == {"1": record["per_P"]["1"]}, \
+        f"(al): exchanges {ana['per_P']} != {record['per_P']['1']}"
+    times = ana["times"][1]
+    log(f"(al) bench.dist at world size 1, {DIST_SIZE[0]} x {DIST_SIZE[1]}: "
+        f"the pipeline best {run['per_P'][1]['seconds'] * 1e3:.3f} ms of "
+        f"{REPEATS} between barriers; components (best of {REPEATS}, ms): "
+        + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in times.items())
+        + f"; exchanges equal EXCHANGE.json's P = 1; card: {smi}")
+    phase_done("(al)", t0)
+    log(f"(ah)-(al): {time.perf_counter() - start:.1f} s on the host clock")
+    return (f"(ah)-(al) match numpy: (ah) {len(O.LABELS)} bench_ops plans, "
+            f"join_merge through the merge probe; (ai) {len(C.LABELS)} "
+            f"configs; (aj) {len(stress)} capacity edges, overflow flags "
+            f"off; (ak) {len(stats)} example workloads, DOT written; (al) "
+            f"run's {len(got)} groups equal the single-card plan's, the "
+            f"efficiency undefined at one rank, analyze's exchanges equal "
+            f"EXCHANGE.json's P = 1 record")
+
+
 def main():
     import torch
 
@@ -3713,6 +3939,10 @@ def main():
     # (ad)-(ag): the harness, the twins of bench.py and __graft_entry__.py,
     # distribution at world size 1
     log(tooling_phases(torch, T, dev, smi, total, fact, dim, fact_t, dim_t))
+
+    # (ah)-(al): the twins of bench_ops.py, scripts/bench_configs.py,
+    # scripts/stress_edges.py, examples/operation_example.py, bench_dist.py
+    log(twin_phases(torch, T, dev, smi, total))
 
     # 5. times, host clock around execute (which ends in a sync)
     def median_ms(plan_fn, label, size):

@@ -36,6 +36,10 @@ def test_import_leaves_jax_out():
         "supersonic_tpu_torch.parallel.multihost, "
         "supersonic_tpu_torch.bench, supersonic_tpu_torch.bench.harness, "
         "supersonic_tpu_torch.bench.headline, supersonic_tpu_torch.entry, "
+        "supersonic_tpu_torch.bench.ops, supersonic_tpu_torch.bench.configs, "
+        "supersonic_tpu_torch.bench.dist, "
+        "supersonic_tpu_torch.bench.stress_edges, "
+        "supersonic_tpu_torch.examples.operation_example, "
         "supersonic_tpu_torch.testing, "
         "supersonic_tpu_torch.testing.operation_testing, "
         "supersonic_tpu_torch.reference.ref_engine, "
