@@ -125,7 +125,25 @@ take the merge probe, STRING keys and the outer join types:
      ``bench/dist.py``'s ``run`` and ``analyze`` at world size 1 over
      NCCL at 1M x 100k: the rows equal the single-card plan's and
      numpy's, the efficiency is null, the exchanges equal EXCHANGE.json's
-     P = 1 record
+     P = 1 record.  Then (am), the card's route against the CPU route,
+     from zeroed launch counters: seeded random plans of
+     tests/torch_fuzz.py (Filter with three-valued predicates, Sort and
+     ExtendedSort with a limit, dense and sort-path GroupAggregate with
+     SUM, COUNT, COUNT(*), MIN, MAX, FIRST and LAST, ScalarAggregate, a
+     Compute over integer and float edge values, HashJoin in every
+     JoinType x UNIQUE/NOT_UNIQUE x allow_dense_lookup with empty sides,
+     MergeUnionAll and UnionAll) over nullable INT32, INT64, FLOAT, DOUBLE,
+     STRING and BOOL columns at 0, 1 and each kernel tile's row count and
+     one either side (read from csrc/), 200 seeds or as many as 30 s hold,
+     each on the card and on the CPU from the same numpy data: rows equal
+     in order, values bit for bit but float SUMs within their order bound,
+     the same exception where the CPU raises; the cases of
+     tests/test_differential_sweep.py and tests/test_capacity_edges.py
+     through ``testing.check_operation`` on the card; and (ab)'s and (ac)'s
+     full-size spills under a token that interrupts at its fourth poll
+     (tests/test_errors.py's FlipAfter(3)): each raises Interrupted and
+     leaves no file, the rerun equals the in-memory plan.  Each of the five
+     CUDA kernels must launch in (am)
   5. the median times of the headline query (under both bindings, and
      its aggregate in insertion order under both), of join (a), of merges
      (d) and (e), of group-bys (g), (h) and (j), of joins (k)-(n) and of
@@ -3580,6 +3598,294 @@ def twin_phases(torch, T, dev, smi, total):
             f"EXCHANGE.json's P = 1 record")
 
 
+# --- path (am): the card's route against the CPU route ----------------------
+
+FUZZ_SEEDS = 200      # (am): seeded random plans, tests/torch_fuzz.py ...
+FUZZ_SECONDS = 30.0   # ... or as many as this many seconds hold
+AM_KERNELS = ("compaction", "lut_gather", "segment_reduce", "spread",
+              "merge_sorted")
+
+
+def fuzz_plans(T, dev):
+    """(am)'s seeded random plans (``tests/torch_fuzz.py``) at the kernels'
+    tile row counts, read from ``csrc``: each plan on the card and on the
+    CPU from the same numpy data, compared by ``compare_results`` (rows in
+    order, values bit for bit, float SUMs within their order bound, the
+    same exception where the CPU raises).  Returns (plans, rows compared,
+    mismatches, the plans of each family, the plans that raise, the row
+    counts)."""
+    import torch_fuzz as F
+
+    sizes = F.tile_row_counts(pathlib.Path(__file__).resolve().parent)
+    t0 = time.perf_counter()
+    plans = rows = raises = 0
+    bad, families = [], {}
+    for seed in range(FUZZ_SEEDS):
+        if time.perf_counter() - t0 > FUZZ_SECONDS:
+            break
+        case = F.random_case(seed, sizes)
+        want = F.run_case(T, case, "cpu")
+        n, err = F.compare_results(case, want, F.run_case(T, case, dev))
+        plans += 1
+        rows += n
+        raises += want[0] == "raises"
+        families[case.family] = families.get(case.family, 0) + 1
+        if err:
+            bad.append(f"seed {seed}, {case.family} {case.note} "
+                       f"{[s.n for s in case.specs]} rows: {err}")
+    return plans, rows, bad, families, raises, sizes
+
+
+def suite_edges(T, dev):
+    """The cases of tests/test_differential_sweep.py and
+    tests/test_capacity_edges.py on the card, held to the expectations of
+    the port's CPU tests (tests/test_torch_tooling.py,
+    tests/test_torch_joins.py): Filter, Sort, GroupAggregate and UNIQUE
+    joins against the port's row model through ``check_operation``'s
+    capacity sweep; high-duplication NOT_UNIQUE expansion at 100% and
+    ~104% of out_capacity, and past it; the NOT_UNIQUE join at 91%, 97%
+    and 100% of out_capacity and one row short; the group extraction at a
+    capacity past 2^24.  Returns the count of cases."""
+    from supersonic_tpu_torch.reference import ref_engine as ref
+    from supersonic_tpu_torch.testing import check_operation
+    from torch_fuzz import sweep_data, sweep_rows
+
+    A, JT, KU = T.Aggregation, T.JoinType, T.KeyUniqueness
+    schema = T.TupleSchema.of(("k", T.INT64), ("v", T.INT64),
+                              ("x", T.DOUBLE), ("s", T.STRING))
+    rs = T.TupleSchema.of(("pk", T.INT64, False), ("w", T.INT64))
+    cases = 0
+
+    def check(*a):
+        nonlocal cases
+        check_operation(*a, device=dev.type)
+        cases += 1
+
+    for seed, n in ((0, 1000), (1, 2500), (2, 777)):
+        data = sweep_data(np.random.default_rng(seed + 100), n)
+        check(lambda t: T.Filter(T.col("v") > 0, T.ScanTable(t)),
+              [(schema, data)], ref.filter_rows(
+                  sweep_rows(data, n),
+                  lambda r: None if r[1] is None else r[1] > 0))
+    for seed, n in ((0, 1200), (1, 3000)):
+        data = sweep_data(np.random.default_rng(seed + 110), n)
+        check(lambda t: T.Sort([("k", True), T.SortKey("x", ascending=False)],
+                               T.ScanTable(t)), [(schema, data)],
+              ref.sort_rows(sweep_rows(data, n), [(0, True), (2, False)]))
+    for seed, n in ((0, 1500), (1, 4000)):
+        data = sweep_data(np.random.default_rng(seed + 120), n, key_dom=60)
+        check(lambda t: T.GroupAggregate(
+            ["k"], [T.AggSpec(A.SUM, "v", "sv"), T.AggSpec(A.MIN, "v", "mn"),
+                    T.AggSpec(A.MAX, "v", "mx"), T.AggSpec(A.COUNT, "x", "cx"),
+                    T.AggSpec(A.COUNT, None, "c")], T.ScanTable(t)),
+              [(schema, data)], ref.group_aggregate(
+                  sweep_rows(data, n), [0],
+                  [("sum", 1), ("min", 1), ("max", 1), ("count", 2),
+                   ("count_star", None)]))
+    for jt in (JT.INNER, JT.LEFT_OUTER):
+        for dense in (True, False):
+            rng = np.random.default_rng(130)
+            data = sweep_data(rng, 1200, key_dom=40)
+            rdata = {"pk": rng.choice(60, size=25, replace=False).tolist(),
+                     "w": rng.integers(0, 100, 25).tolist()}
+            check(lambda lt, rt: T.HashJoin(
+                jt, ["k"], ["pk"], T.ScanTable(lt), T.ScanTable(rt),
+                KU.UNIQUE, allow_dense_lookup=dense),
+                [(schema, data), (rs, rdata)], ref.hash_join(
+                    sweep_rows(data, 1200), list(zip(rdata["pk"],
+                                                     rdata["w"])), 0, 0,
+                    jt == JT.LEFT_OUTER, rhs_width=2))
+
+    def table(s, d, **kw):
+        return T.Table.from_data(s, d, device=dev, **kw)
+
+    # high-duplication NOT_UNIQUE expansion at and near out_capacity
+    for dense in (True, False):
+        rng = np.random.default_rng(140)
+        data = sweep_data(rng, 800, null_p=0.05, key_dom=10)
+        rdata = {"pk": np.repeat(np.arange(10), 6).tolist(),
+                 "w": rng.integers(0, 100, 60).tolist()}
+        exp = ref.hash_join(sweep_rows(data, 800), list(zip(
+            rdata["pk"], rdata["w"])), 0, 0, False, rhs_width=2)
+        for cap in (len(exp), int(len(exp) * 1.04)):
+            got = T.execute(T.HashJoin(
+                JT.INNER, ["k"], ["pk"], T.ScanTable(table(schema, data)),
+                T.ScanTable(table(rs, rdata)), KU.NOT_UNIQUE,
+                out_capacity=cap, allow_dense_lookup=dense)).to_pylist()
+            assert got == exp, f"(am) NOT_UNIQUE expansion, cap {cap}"
+            cases += 1
+    rng = np.random.default_rng(150)
+    data = sweep_data(rng, 500, null_p=0.0, key_dom=5)
+    rdata = {"pk": np.repeat(np.arange(5), 4).tolist(), "w": list(range(20))}
+    exact = len(ref.hash_join(sweep_rows(data, 500), list(zip(
+        rdata["pk"], rdata["w"])), 0, 0, False, rhs_width=2))
+    expect_overflow(T, T.HashJoin(
+        JT.INNER, ["k"], ["pk"], T.ScanTable(table(schema, data)),
+        T.ScanTable(table(rs, rdata)), KU.NOT_UNIQUE,
+        out_capacity=exact - 10), "(am) differential overflow")
+    cases += 1
+
+    # tests/test_capacity_edges.py: 200 probe rows x 4 build rows a key
+    rng = np.random.default_rng(0)
+    probe = table(T.TupleSchema.of(("fk", T.INT64, False),
+                                   ("pv", T.INT64, False)),
+                  {"fk": rng.integers(0, 20, 200), "pv": np.arange(200)})
+    build = table(T.TupleSchema.of(("bk", T.INT64, False),
+                                   ("bv", T.INT64, False)),
+                  {"bk": np.repeat(np.arange(20), 4), "bv": np.arange(80)})
+    bmap: dict = {}
+    for bk, bv in build.to_pylist():
+        bmap.setdefault(bk, []).append(bv)
+    want = sorted((k, pv, k, bv) for k, pv in probe.to_pylist()
+                  for bv in bmap.get(k, []))
+    for fill in (0.91, 0.97, 1.0):
+        out = T.execute(T.HashJoin(
+            JT.INNER, ["fk"], ["bk"], T.ScanTable(probe), T.ScanTable(build),
+            KU.NOT_UNIQUE, out_capacity=int(np.ceil(800 / fill))))
+        assert int(out.num_rows) == 800, f"(am) fill {fill}: rows"
+        assert sorted(out.to_pylist()) == want, f"(am) fill {fill}: rows"
+        cases += 1
+    expect_overflow(T, T.HashJoin(
+        JT.INNER, ["fk"], ["bk"], T.ScanTable(probe), T.ScanTable(build),
+        KU.NOT_UNIQUE, out_capacity=799), "(am) one row past out_capacity")
+    cases += 1
+    rng = np.random.default_rng(2)
+    k, v = rng.integers(0, 37, 4096), rng.integers(0, 100, 4096)
+    out = T.execute(T.GroupAggregate(
+        ["k"], [T.AggSpec(A.SUM, "v", "sv")], T.ScanTable(table(
+            T.TupleSchema.of(("k", T.INT64, False), ("v", T.INT64, False)),
+            {"k": k, "v": v}, capacity=(1 << 24) + 64)),
+        T.GroupAggregateOptions(estimated_result_row_count=64)))
+    sums: dict = {}
+    for ki, vi in zip(k.tolist(), v.tolist()):
+        sums[ki] = sums.get(ki, 0) + vi
+    assert dict(out.to_pylist()) == sums, "(am) extraction past 2^24"
+    return cases + 1
+
+
+def expect_overflow(T, plan, what):
+    try:
+        T.execute(plan)
+    except T.EvaluationError as e:
+        assert str(e) == "evaluation failed: join result overflow", \
+            f"{what}: {e}"
+        return
+    raise AssertionError(f"{what}: no overflow raised")
+
+
+def flip_after(T, n):
+    """tests/test_errors.py's FlipAfter: a token whose ``interrupted()``
+    turns true at its (n + 1)-th poll, counting its polls."""
+    class FlipAfter(T.CancellationToken):
+        __slots__ = ("n", "polls")
+
+        def __init__(self):
+            super().__init__()
+            self.n, self.polls = n, 0
+
+        def interrupted(self):
+            self.polls += 1
+            self.n -= 1
+            return self.n < 0
+    return FlipAfter()
+
+
+def cancel_spills(torch, T, dev, fact, fg):
+    """Fault 6 on the card at (ab)'s and (ac)'s full size: under
+    FlipAfter(3) the spilling sort and the hybrid group-by raise
+    ``Interrupted`` at their fourth poll, the second of their chunk loop
+    (the sort after its first run spilled; the hybrid's sorter holds its
+    first chunk's groups unspilled), and leave no file under their
+    temporary prefix; the uninterrupted rerun equals the in-memory plan
+    (``check_spill_sort``, ``check_hybrid``).  Returns the summary."""
+    import tempfile
+
+    from supersonic_tpu_torch.io import external
+    from supersonic_tpu_torch.ops.sort import sort_working_set_bytes
+
+    hd = hybrid_data(fact)
+    h_t = T.Table.from_numpy(
+        T.TupleSchema.of(("fk", T.INT32, False), ("v", T.FLOAT, False),
+                         ("d", T.DOUBLE, False)), hd, device=dev)
+    s_t = T.Table.from_numpy(
+        T.TupleSchema.of(("g", T.INT32, False), ("fk", T.INT32, False),
+                         ("v", T.FLOAT, False)),
+        {k: v[:SPILL_ROWS] for k, v in fg.items()}, device=dev)
+    limit = sort_working_set_bytes(s_t.schema, s_t.capacity, 2) // SPILL_RUNS
+    quota = hybrid_quota(T, h_t, SPILL_ROWS // SPILL_RUNS)
+    lines = []
+    for label, make, check, spilled in (
+            ("(ac) SortWithTempDirPrefix",
+             lambda tmp: spill_sort_plan(T, s_t, limit, tmp),
+             lambda out: check_spill_sort(torch, out, s_t), True),
+            ("(ab) HybridGroupAggregate",
+             lambda tmp: hybrid_plan(T, h_t, quota, tmp),
+             lambda out: check_hybrid(out, T.execute(groupby_hi_plan(
+                 T, h_t)), hd), False)):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_am_") as tmp:
+            token = flip_after(T, 3)
+            external.reset_disk_bytes()
+            t0 = time.perf_counter()
+            try:
+                T.execute(make(tmp), cancel=token)
+            except T.Interrupted:
+                pass
+            else:
+                raise AssertionError(f"(am) {label}: not interrupted")
+            stop_s = time.perf_counter() - t0
+            written = external.disk_bytes["written"]
+            left = list(pathlib.Path(tmp).rglob("*"))
+            assert token.polls == 4, f"(am) {label}: {token.polls} polls"
+            assert (written > 0) == spilled, f"(am) {label}: {written} bytes"
+            assert not left, f"(am) {label}: files left behind: {left}"
+            rows = check(T.execute(make(tmp)))
+        lines.append(f"{label} {SPILL_ROWS} rows under FlipAfter(3): "
+                     f"Interrupted at poll {token.polls} after "
+                     f"{stop_s * 1e3:.1f} ms and {written} bytes spilled, "
+                     f"no file left; the rerun's {rows} rows equal the "
+                     f"in-memory plan's")
+    return lines
+
+
+def parity_phase(torch, T, dev, smi, total, fact, fg):
+    """Path (am), from zeroed launch counters (added to ``total``): the
+    seeded random plans on the card against the CPU, the JAX suite's
+    sweep and capacity cases on the card, and fault 6's cancellation of
+    the full-size spills.  Fails on any mismatch, and unless each of the
+    five CUDA kernels ran.  Returns the summary."""
+    from supersonic_tpu_torch import kernels
+
+    start = time.perf_counter()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    plans, rows, bad, families, raises, sizes = fuzz_plans(T, dev)
+    fuzz_s = time.perf_counter() - start
+    log(f"(am) seeded random plans at {sizes} rows: {plans} plans "
+        f"({', '.join(f'{k} {v}' for k, v in sorted(families.items()))}; "
+        f"{raises} raise on the CPU), {rows} rows compared, {len(bad)} "
+        f"mismatches, {fuzz_s:.1f} s on the host clock; card: {smi}")
+    assert not bad, f"(am) first mismatch: {bad[0]}"
+    t0 = time.perf_counter()
+    cases = suite_edges(T, dev)
+    log(f"(am) the JAX suite's sweep and capacity cases on the card: "
+        f"{cases} cases pass, {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for line in cancel_spills(torch, T, dev, fact, fg):
+        log(f"(am) {line}; card: {smi}")
+    log(f"(am) cancellation: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    got = dict(kernels.launches)
+    for k in got:
+        total[k] += got[k]
+    log(f"main path launches, (am): {got}")
+    for k in AM_KERNELS:
+        assert got[k] > 0, f"(am) did not launch {k}"
+    log(f"(am): {time.perf_counter() - start:.1f} s on the host clock")
+    return (f"(am) matches the CPU route: {plans} seeded plans, {rows} rows, "
+            f"0 mismatches; {cases} sweep and capacity cases; both spills "
+            f"interrupted under FlipAfter(3), no file left, reruns exact")
+
+
 def main():
     import torch
 
@@ -3943,6 +4249,10 @@ def main():
     # (ah)-(al): the twins of bench_ops.py, scripts/bench_configs.py,
     # scripts/stress_edges.py, examples/operation_example.py, bench_dist.py
     log(twin_phases(torch, T, dev, smi, total))
+
+    # (am): the card's route against the CPU route
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"))
+    log(parity_phase(torch, T, dev, smi, total, fact, fg))
 
     # 5. times, host clock around execute (which ends in a sync)
     def median_ms(plan_fn, label, size):

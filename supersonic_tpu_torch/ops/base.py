@@ -40,9 +40,18 @@ class Interrupted(RuntimeError):
 
 
 class CancellationToken:
-    """Cooperative cancellation, polled at ``execute()`` entry, before the
-    plan runs, and in the chunk loops of the spilling sort and group-by.
-    Call ``interrupt()`` from any thread."""
+    """Cooperative in-flight cancellation.
+
+    The reference propagates ``Interrupt()`` down the cursor tree and
+    cursors poll the flag inside their ``Next()`` loops.  Here one eager
+    run of a bound plan is not split, so the poll points are the host
+    boundaries, as in the JAX package: ``execute()`` entry, every chunk of
+    the external (spill) sort and the hybrid aggregation's pregroup and
+    combine loops, and each deferred host-materialisation item.  Every
+    poll goes through ``interrupted()``, so a subclass may read an outside
+    flag there (a deadline, a client hang-up).  Call ``interrupt()`` from
+    any thread; the query raises ``Interrupted`` at its next poll point.
+    """
 
     __slots__ = ("_interrupted",)
 
@@ -56,7 +65,7 @@ class CancellationToken:
         return self._interrupted
 
     def check(self) -> None:
-        if self._interrupted:
+        if self.interrupted():
             raise Interrupted("query interrupted")
 
 
@@ -144,6 +153,12 @@ class BindContext:
         self.leaves: list[Table] = []
         self.lazy: list = []
         self.cancel = cancel
+
+    def check_cancel(self) -> None:
+        """Poll point for host and disk boundaries that run while the plan
+        binds."""
+        if self.cancel is not None:
+            self.cancel.check()
 
     def register_leaf(self, table: Table) -> int:
         self.leaves.append(table)
