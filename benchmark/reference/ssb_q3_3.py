@@ -1,0 +1,16 @@
+"""SSB Q3.3 (see queries/ssb_q3_3.py)."""
+from reference.ssb_star import between, revenue, star, words_in
+
+
+def answer(data, p, low=False):
+    d = data.tables["date"]
+    cities = (p["city1"], p["city2"])
+    return star(data, [
+        ("customer", "lo_custkey", "c_custkey",
+         words_in(data, "customer", "c_city", *cities)),
+        ("supplier", "lo_suppkey", "s_suppkey",
+         words_in(data, "supplier", "s_city", *cities)),
+        ("date", "lo_orderdate", "d_datekey",
+         between(d["d_year"], p["year_lo"], p["year_hi"])),
+    ], [("customer", "c_city"), ("supplier", "s_city"), ("date", "d_year")],
+        revenue, "revenue", [("d_year", True), ("revenue", False)], low)
