@@ -1,0 +1,12 @@
+"""ops.aggregate_ms (operators and expressions): device ms a query that the
+aggregate nodes (GroupAggregate, ScalarAggregate, the best-effort, hybrid
+and cluster aggregates) hold the device stream, less the nodes they run
+(CUDA events at each node's run)."""
+from benchlib import program
+
+
+def read(trace):
+    v = program.view(trace)
+    if v is None or not trace.queries or not v.has_node(program.AGGREGATES):
+        return None
+    return v.node_ms(program.AGGREGATES) / trace.queries

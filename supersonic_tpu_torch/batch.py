@@ -37,6 +37,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from . import tracing
 from .dictionary import Dictionary, encode, merge
 from .schema import Attribute, SchemaError, TupleSchema
 from .types import (DataType, check_column_type, from_carrier,
@@ -263,33 +264,38 @@ class Table:
     # -- host materialization -------------------------------------------------
     def to_numpy(self) -> dict[str, np.ndarray]:
         """Live rows on the host (object arrays, None = NULL, for nullable
-        columns; ENUM columns as object arrays of value names)."""
-        n = int(self.num_rows)
-        out: dict[str, np.ndarray] = {}
-        for attr in self.schema:
-            col = self.columns[attr.name]
-            vals = from_carrier(col.values[:n].cpu().numpy(), attr.type)
-            if attr.type in (DataType.STRING, DataType.BINARY):
-                decoded = self.dicts[attr.name].decode(vals)
-                if col.valid is not None:
-                    decoded[~col.valid[:n].cpu().numpy()] = None
-                out[attr.name] = decoded
-            elif attr.type == DataType.ENUM:
-                valid = (np.ones(n, dtype=bool) if col.valid is None
-                         else col.valid[:n].cpu().numpy())
-                names = np.empty(n, dtype=object)
-                for i in range(n):
-                    names[i] = attr.enum.name_of(int(vals[i])) if valid[i] \
-                        else None
-                out[attr.name] = names
-            elif col.valid is not None:
-                valid = col.valid[:n].cpu().numpy()
-                obj = np.empty(n, dtype=object)
-                for i in range(n):
-                    obj[i] = vals[i].item() if valid[i] else None
-                out[attr.name] = obj
-            else:
-                out[attr.name] = vals
+        columns; ENUM columns as object arrays of value names).  One host
+        sync for the row count and one a column and validity mask."""
+        with tracing.span("query.copy"):
+            n = int(tracing.to_host(self.num_rows, "copy.num_rows"))
+            out: dict[str, np.ndarray] = {}
+            for attr in self.schema:
+                col = self.columns[attr.name]
+                vals = from_carrier(
+                    tracing.to_host(col.values[:n], "copy.values").numpy(),
+                    attr.type)
+                valid = (None if col.valid is None else tracing.to_host(
+                    col.valid[:n], "copy.valid").numpy())
+                if attr.type in (DataType.STRING, DataType.BINARY):
+                    decoded = self.dicts[attr.name].decode(vals)
+                    if valid is not None:
+                        decoded[~valid] = None
+                    out[attr.name] = decoded
+                elif attr.type == DataType.ENUM:
+                    if valid is None:
+                        valid = np.ones(n, dtype=bool)
+                    names = np.empty(n, dtype=object)
+                    for i in range(n):
+                        names[i] = (attr.enum.name_of(int(vals[i]))
+                                    if valid[i] else None)
+                    out[attr.name] = names
+                elif valid is not None:
+                    obj = np.empty(n, dtype=object)
+                    for i in range(n):
+                        obj[i] = vals[i].item() if valid[i] else None
+                    out[attr.name] = obj
+                else:
+                    out[attr.name] = vals
         return out
 
     def to_pylist(self) -> list[tuple]:
@@ -297,7 +303,7 @@ class Table:
         cols = self.to_numpy()
         names = self.schema.names()
         rows = []
-        for i in range(int(self.num_rows)):
+        for i in range(int(tracing.to_host(self.num_rows, "copy.num_rows"))):
             rows.append(tuple(
                 (cols[c][i].item() if isinstance(cols[c][i], np.generic)
                  else cols[c][i]) for c in names))

@@ -33,7 +33,7 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import native
+from .. import native, tracing
 from ..batch import Column, Table, concat_tables
 from ..dictionary import merge
 from ..kernels.lut_gather import BoundLut, take_small
@@ -122,12 +122,14 @@ def _iter_rows(path: str) -> Iterator[tuple]:
 def _host_arrays(table: Table, schema: TupleSchema):
     """{name: (values of the physical dtype, valid or None)} of the live
     rows, one copy a column to the host."""
-    n = int(table.num_rows)
+    n = int(tracing.to_host(table.num_rows, "spill.num_rows"))
     out = {}
     for a in schema:
         c = table.columns[a.name]
-        out[a.name] = (from_carrier(c.values[:n].cpu().numpy(), a.type),
-                       None if c.valid is None else c.valid[:n].cpu().numpy())
+        vals = tracing.to_host(c.values[:n], "spill.values").numpy()
+        out[a.name] = (from_carrier(vals, a.type),
+                       None if c.valid is None else
+                       tracing.to_host(c.valid[:n], "spill.valid").numpy())
     return out
 
 
@@ -163,7 +165,7 @@ class ExternalSorter:
         """Feed a Table's live rows.  They stay on the table's device (its
         column slices) until their run sorts; STRING/BINARY columns keep
         their codes, and the dictionaries merge when the run is built."""
-        n = int(table.num_rows)
+        n = int(tracing.to_host(table.num_rows, "spill.num_rows"))
         if n == 0:
             return
         if self.device is None:
@@ -338,7 +340,7 @@ class ExternalSorter:
         if last is not None:
             t = sort_table(last, self.order)
             runs.append((_host_arrays(t, self.schema), t.dicts,
-                         int(t.num_rows)))
+                         int(tracing.to_host(t.num_rows, "spill.num_rows"))))
         starts = np.zeros(len(runs) + 1, dtype=np.int64)
         np.cumsum([n for _, _, n in runs], out=starts[1:])
         total = int(starts[-1])

@@ -17,7 +17,10 @@ else: compaction launches one kernel (after zeroing its scratch with a
 memset), segment_reduce (its keyed and ids forms, and segment_reduce_small,
 one request of the same kernel) one kernel (after a memset of its ticket),
 spread a bounds and an expand kernel, merge_sorted a splits and a merge
-kernel, lut_gather one kernel.
+kernel, lut_gather one kernel.  ``launches`` and ``reset_launches`` live in
+the port's counter registry, ``supersonic_tpu_torch/tracing.py``, and are
+re-exported here; while spans are recorded, each wrapper's marshalling and
+launch is the span ``kernel.<name>``.
 """
 from __future__ import annotations
 
@@ -31,6 +34,8 @@ import threading
 
 import torch
 
+from ..tracing import launches, reset_launches  # noqa: F401 (re-exported)
+
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -38,22 +43,12 @@ BUILD_DIR = _PKG / "_build"
 # Most arrays one launch moves (SS_MAX_ARRAYS of csrc/common.cuh)
 MAX_ARRAYS = 32
 
-# kernel name -> launches since the last reset_launches()
-launches: dict[str, int] = {"compaction": 0, "lut_gather": 0,
-                            "segment_reduce": 0, "segment_reduce_small": 0,
-                            "spread": 0, "merge_sorted": 0}
-
 _lock = threading.Lock()
 _lib = None
 
 
 class KernelError(RuntimeError):
     """A kernel failed to build or to launch."""
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
 
 
 def _sources() -> list[pathlib.Path]:

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from . import (MAX_ARRAYS, check, check_cuda_inputs, int_array, launches,
                library, ptr_array, stream_of)
 
@@ -72,6 +73,12 @@ def compact_kernel(payloads, mask: torch.Tensor, out_cap: int):
     if mask.device.type != "cuda":
         raise ValueError(f"compact_kernel: unsupported device {mask.device}")
     check_cuda_inputs("compact_kernel", mask.device, [mask] + list(payloads))
+    with tracing.span("kernel.compaction"):
+        return _launch(payloads, mask, n, out_cap)
+
+
+def _launch(payloads, mask: torch.Tensor, n: int, out_cap: int):
+    """``compact_kernel``'s outputs, marshalling and launch on CUDA."""
     dev = mask.device
     outs = [torch.empty(out_cap, dtype=p.dtype, device=dev) for p in payloads]
     if not kernel_launches(n, out_cap):

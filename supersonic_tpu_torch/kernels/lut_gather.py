@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from . import (MAX_ARRAYS, addr_array, check, check_cuda_inputs, int_array,
                launches, library, ptr_array, stream_of)
 
@@ -45,6 +46,12 @@ def lut_gather(luts, idx: torch.Tensor, num_entries: int):
     if idx.device.type != "cuda":
         raise ValueError(f"lut_gather: unsupported device {idx.device}")
     check_cuda_inputs("lut_gather", idx.device, [idx] + list(luts))
+    with tracing.span("kernel.lut_gather"):
+        return _launch(luts, idx, num_entries)
+
+
+def _launch(luts, idx: torch.Tensor, num_entries: int):
+    """``lut_gather``'s outputs, marshalling and launch on CUDA."""
     lib = library()
     n = idx.shape[0]
     outs = [torch.empty(n, dtype=lut.dtype, device=idx.device)
@@ -98,7 +105,9 @@ class BoundLut:
         device = torch.device(device)
         t = self._on.get(device)
         if t is None:
-            t = self._on[device] = self.host.to(device)
+            # a copy from pageable host memory waits for the stream
+            with tracing.sync("lut.upload", self.host):
+                t = self._on[device] = self.host.to(device)
         return t
 
 

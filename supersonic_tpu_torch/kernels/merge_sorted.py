@@ -35,6 +35,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import tracing
 from . import (MAX_ARRAYS, addr_array, check, check_cuda_inputs, int_array,
                launches, library, ptr_array, stream_of)
 
@@ -234,6 +235,13 @@ def merge_sorted(a_lanes, b_lanes, keys, out_cap: int, a_rows=None,
     if dev.type != "cuda":
         raise ValueError(f"merge_sorted: unsupported device {dev}")
     check_cuda_inputs("merge_sorted", dev, list(a_lanes) + list(b_lanes))
+    with tracing.span("kernel.merge_sorted"):
+        return _launch(a_lanes, b_lanes, keys, out_cap, a_rows, b_rows)
+
+
+def _launch(a_lanes, b_lanes, keys, out_cap: int, a_rows, b_rows):
+    """``merge_sorted``'s outputs, marshalling and launches on CUDA."""
+    dev = a_lanes[0].device
     cap_a, cap_b = a_lanes[0].shape[0], b_lanes[0].shape[0]
     outs = [torch.empty(out_cap, dtype=p.dtype, device=dev) for p in a_lanes]
     if out_cap == 0:

@@ -50,6 +50,7 @@ import ctypes
 
 import torch
 
+from .. import tracing
 from . import (addr_array, check, check_cuda_inputs, int_array, launches,
                library, stream_of)
 
@@ -288,7 +289,13 @@ def _ids_form(requests, segment_ids, num_segments, counter: str):
 
 
 def _launch(keys, requests, K, keep, num_rows, counter: str):
-    """One kernel launch on CUDA tensors: (outputs, dropped-row count)."""
+    """One kernel launch on CUDA tensors: (outputs, dropped-row count),
+    its marshalling and launch the span ``kernel.<counter>``."""
+    with tracing.span("kernel." + counter):
+        return _marshal_and_launch(keys, requests, K, keep, num_rows, counter)
+
+
+def _marshal_and_launch(keys, requests, K, keep, num_rows, counter: str):
     lane0 = keys[0][0]
     dev = lane0.device
     if dev.type != "cuda":

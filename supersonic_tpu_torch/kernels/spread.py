@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from . import (MAX_ARRAYS, check, check_cuda_inputs, int_array, launches,
                library, ptr_array, stream_of)
 
@@ -65,6 +66,13 @@ def spread_kernel(payloads, base: torch.Tensor, out_cap: int, add_row=()):
     if n == 0 or out_cap == 0:
         return [torch.zeros(out_cap, dtype=p.dtype, device=dev)
                 for p in payloads]
+    with tracing.span("kernel.spread"):
+        return _launch(payloads, base, n, out_cap, add_row)
+
+
+def _launch(payloads, base: torch.Tensor, n: int, out_cap: int, add_row):
+    """``spread_kernel``'s outputs, marshalling and launches on CUDA."""
+    dev = base.device
     lib = library()
     outs = [torch.empty(out_cap, dtype=p.dtype, device=dev) for p in payloads]
     ntiles = -(-out_cap // lib.ss_spread_tile_rows())

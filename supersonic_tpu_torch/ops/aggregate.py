@@ -57,6 +57,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .. import tracing
 from ..batch import Column, Table, gather_arrays
 from ..dictionary import DeferredDictionary
 from ..kernels import MAX_ARRAYS
@@ -909,7 +910,8 @@ class GroupAggregate(Operation):
         out_stats = ({names[0]: cb.stats[names[0]]}
                      if names and names[0] in cb.stats else {})
         return BoundOperation(out_schema, out_dicts, fn, out_cap,
-                              stats=out_stats)
+                              stats=out_stats,
+                              route="sort" if dense is None else "dense")
 
     def _try_aggregate_pushdown(self, ctx: BindContext,
                                 _unordered: bool) -> Optional[BoundOperation]:
@@ -1126,7 +1128,7 @@ class GroupAggregate(Operation):
         if self.group_by[0] in bound.stats:
             out_stats[self.group_by[0]] = bound.stats[self.group_by[0]]
         return BoundOperation(out_schema, out_dicts, fn, bound.capacity,
-                              stats=out_stats)
+                              stats=out_stats, route="pushdown")
 
 
 class BestEffortGroupAggregate(GroupAggregate):
@@ -1263,7 +1265,11 @@ def _combine_specs(specs, keep_distinct: bool) -> list:
 def _check_flags(flags, what: str) -> None:
     from ..exprs.base import EvaluationError
 
-    if flags.shape[0] and bool(flags.any()):
+    if not flags.shape[0]:
+        return
+    with tracing.sync("hybrid.flags", flags):
+        fired = bool(flags.any())
+    if fired:
         raise EvaluationError(
             f"evaluation failed: hybrid {what} raised device error flags")
 
@@ -1316,7 +1322,7 @@ class _HybridSpill:
                     src.num_rows, dev,
                     {n: d for n, d in src.dicts.items()
                      if n in self.sub_schema.names()})
-        n_in = int(src.num_rows)
+        n_in = int(tracing.to_host(src.num_rows, "hybrid.num_rows"))
         # one bound pregroup, run over every chunk: its leaf has no
         # planner statistics, so no chunk's key range binds the plan
         pre_run, _, _ = compile_plan(GroupAggregate(
@@ -1347,7 +1353,7 @@ class _HybridSpill:
                 ScanTable(concat_tables(outputs))))
             final, flags, _ = m_run(leaves)
             _check_flags(flags, "merge")
-        n_out = int(final.num_rows)
+        n_out = int(tracing.to_host(final.num_rows, "hybrid.num_rows"))
         if n_out > self.out_cap:
             raise EvaluationError(
                 "evaluation failed: hybrid aggregate result exceeds the "
@@ -1361,7 +1367,7 @@ class _HybridSpill:
         from .base import compile_plan, materialize_child, placeholder
         from .scan import ScanTable
 
-        m_rows = int(merged.num_rows)
+        m_rows = int(tracing.to_host(merged.num_rows, "hybrid.num_rows"))
         if m_rows == 0:
             return []
         same = torch.ones(m_rows, dtype=torch.bool, device=merged.device)
@@ -1374,7 +1380,9 @@ class _HybridSpill:
                 ok = c.valid[:m_rows]
                 eq = (eq & ok[1:] & ok[:-1]) | (~ok[1:] & ~ok[:-1])
             same[1:] &= eq
-        starts = torch.nonzero(~same).flatten().cpu().numpy()
+        with tracing.sync("hybrid.nonzero", same):
+            starts = torch.nonzero(~same).flatten()
+        starts = tracing.to_host(starts, "hybrid.starts").numpy()
         cap = max(self.chunk_rows, 2)
         comb_run = None
         outputs = []

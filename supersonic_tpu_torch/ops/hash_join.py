@@ -584,8 +584,10 @@ class HashJoin(Operation):
                      if src in lb.stats}
         out_stats.update({dst: rb.stats[src] for src, dst in rpairs
                           if src in rb.stats})
+        route = ("rowid" if rowid_kmin is not None else "merge" if merge
+                 else "fat_lut" if unique else "csr")
         return BoundOperation(out_schema, out_dicts, fn, out_cap,
-                              stats=out_stats)
+                              stats=out_stats, route=route)
 
     def _bind_outer_rewrite(self, ctx: BindContext) -> BoundOperation:
         """RIGHT_OUTER and FULL_OUTER from the join forms above (the

@@ -18,6 +18,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from .. import tracing
 from ..batch import Table
 from ..schema import Attribute, TupleSchema
 from ..types import DataType, from_carrier
@@ -30,7 +31,9 @@ concat_route: Optional[str] = None
 
 def _host(x) -> np.ndarray:
     """A tensor (or a number) as a host numpy array."""
-    return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+    if hasattr(x, "cpu"):
+        return tracing.to_host(x, "host").numpy()
+    return np.asarray(x)
 
 
 def resolve_deferred(entries, cancel=None) -> None:
@@ -282,7 +285,7 @@ def group_concat(table_or_plan, group_by: Sequence[str], input_col: str,
     from .sort import Sort
 
     names = list(group_by)
-    n = int(src.num_rows)
+    n = int(tracing.to_host(src.num_rows, "host.num_rows"))
     key_attrs = [src.schema.lookup(k) for k in names]
     out_schema = TupleSchema(
         key_attrs + [Attribute(output, DataType.STRING, True)])
@@ -410,7 +413,7 @@ def concat_columns(table_or_plan, input_cols: Sequence[str], output: str,
            else table_or_plan)
     cols = src.to_numpy()
     out_vals: list = []
-    for i in range(int(src.num_rows)):
+    for i in range(int(tracing.to_host(src.num_rows, "host.num_rows"))):
         parts = []
         for name in input_cols:
             v = cols[name][i]

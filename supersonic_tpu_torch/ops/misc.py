@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+from .. import tracing
 from ..batch import Table
 from .base import BindContext, BoundOperation, Operation, RunContext
 
@@ -95,6 +96,6 @@ def format_table(table: Table, limit: int = 20) -> str:
     sep = "-+-".join("-" * w for w in widths)
     body = "\n".join(" | ".join(repr(v).ljust(w) for v, w in zip(r, widths))
                      for r in rows)
-    total = int(table.num_rows)
+    total = int(tracing.to_host(table.num_rows, "copy.num_rows"))
     suffix = "" if total <= limit else f"\n... ({total - limit} more rows)"
     return f"{header}\n{sep}\n{body}{suffix}"

@@ -42,7 +42,8 @@ class ScanTable(Operation):
         stats = table_stats(self.table)
         return BoundOperation(self.table.schema, dict(self.table.dicts), fn,
                               self.table.capacity, stats=stats,
-                              rowid=table_rowid_cols(self.table, stats))
+                              rowid=table_rowid_cols(self.table, stats),
+                              timed=False)
 
 
 class ScanTableWithSelection(Operation):

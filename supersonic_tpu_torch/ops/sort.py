@@ -24,6 +24,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from .. import tracing
 from ..batch import Column, Table, gather_table
 from ..dictionary import transform as dict_transform
 from ..kernels.lut_gather import BoundLut, take_small
@@ -304,7 +305,7 @@ class SortWithTempDirPrefix(Operation):
 
         def producer(leaves, cancel) -> Table:
             src = materialize_bound(cb, leaves, cancel)
-            n = int(src.num_rows)
+            n = int(tracing.to_host(src.num_rows, "sort.num_rows"))
             with ExternalSorter(schema, order, run_rows, temp_prefix,
                                 device=src.device) as sorter:
                 for start in range(0, n, run_rows):
