@@ -182,6 +182,7 @@ MERGE4_RUN_ROWS = 25_000_000  # path (e): 4 runs
 HI_KEYS = DIM_ROWS            # path (g): bench_ops.py:136-140's 1M keys
 FEW_GROUPS = 64               # path (j): a DOUBLE SUM into a few groups
 FEW_KEY_STEP = 10**12         # path (j): INT64 keys far above the row count
+Q1_ROWS = 120_000_000         # the 64-bit sum words at TPC-H Q1's shape
 DOUBLE_RTOL = 1e-12           # DOUBLE sums, of the group's sum of |d|
 WORDS = sorted([              # path (h): bench_ops.py:219-226's 50 keys
     "alpha", "bravo", "charlie", "delta", "echo", "foxtrot", "golf",
@@ -540,16 +541,18 @@ def check_lut_gather_slice(torch, fk):
     return out
 
 
-def seg_compare(torch, name, got, want, reqs, rtol=SUM_RTOL):
+def seg_compare(torch, name, got, want, reqs, rtol=SUM_RTOL,
+                f64_rtol=DOUBLE_RTOL):
     """Kernel and plain outputs of segment-reduce requests ((values, mode)
-    or (values, valid, mode)): f32 sums within ``rtol`` (another order of
-    adds), everything else bit for bit; NaN slots by isnan.  Returns the
-    largest |difference| over the slots that hold no NaN."""
+    or (values, valid, mode)): f32 sums within ``rtol`` and f64 sums within
+    ``f64_rtol`` (another order of adds; callers give f64 sums values of
+    one sign), everything else bit for bit; NaN slots by isnan.  Returns
+    the largest |difference| over the slots that hold no NaN."""
     err = 0.0
     for r, a, b in zip(reqs, got, want):
         mode, values = r[-1], r[0]
         assert a.dtype == b.dtype and a.shape == b.shape, (name, mode)
-        if a.dtype == torch.float32:
+        if a.is_floating_point():
             na, nb = a.isnan(), b.isnan()
             assert torch.equal(na, nb), f"{name} {mode}: NaN slots differ"
             a, b = a[~na], b[~nb]
@@ -557,6 +560,13 @@ def seg_compare(torch, name, got, want, reqs, rtol=SUM_RTOL):
                 values.dtype == torch.float32:
             torch.testing.assert_close(a, b, rtol=rtol, atol=0,
                                        msg=f"{name} f32 sum")
+        elif mode == "sum64" and a.dtype == torch.float64:
+            fin = b.isfinite()
+            assert torch.equal(a[~fin], b[~fin]), f"{name} f64 sum: infs"
+            a, b = a[fin], b[fin]
+            rel = float(((a - b).abs() / b.abs().clamp(min=1e-300)).max()) \
+                if a.numel() else 0.0
+            assert rel <= f64_rtol, f"{name} f64 sum: rel diff {rel:.3g}"
         else:
             assert torch.equal(bits(a), bits(b)), f"{name} {mode}"
         err = max(err, max_abs_diff(a, b))
@@ -730,6 +740,198 @@ def check_segment_reduce(torch, g_lane, v, keep):
         f"at the headline's shape (g, keep, v -> count, sum): {t}")
     log(f"segment_reduce ids form at the headline's shape (ids, count lane, "
         f"v): ms {ids_ms:.6g}, bound_ms {ids_bound:.6g}")
+    return {"max_abs_err": err, **t}
+
+
+def check_segment_reduce_64(torch):
+    """The segment-reduce kernel's 64-bit sum words (``sum64``) against its
+    plain version.  TPC-H Q1's shape: Q1_ROWS rows of two int32 key lanes
+    (3 x 2 slots, skewed as l_returnflag x l_linestatus), a keep mask
+    (~98%), a device row count, five f64 value lanes (one integer-valued,
+    as sum_qty: exact) summed, a count and firstpos: the per-thread
+    instance, three runs bit-identical, then timed.  Then at 20M rows:
+    i64 sums wrapping past INT64_MAX and i32 -> i64 widening beside the
+    32-bit modes (per-thread at K = 64, i64 words by 64-bit atomics);
+    f32 -> f64 widening and f64 slots holding a NaN, an inf, both
+    infinities and only -0.0 (K = 300 over INT64 + INT32 keys, per-warp);
+    K = 2048 with 16 requests, 64-bit and 32-bit words in groups; odd-offset
+    views (element loads) of both instances.  Returns the Q1 shape's
+    timings."""
+    from supersonic_tpu_torch import kernels
+    from supersonic_tpu_torch.kernels.segment_reduce import (
+        per_thread_accumulators, segment_reduce_keyed,
+        segment_reduce_keyed_ref, vector_loads)
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    names, err = [], 0.0
+
+    def keyed(name, keys, reqs, K, keep=None, num_rows=None, vec=True,
+              per_thread=None, runs=2):
+        nonlocal err
+        # the plain version adds a slot's rows into one word (index_add_'s
+        # atomics), within 2 (n - 1) 2^-53 of their sum in any order
+        f64_rtol = 2 * keys[0][0].shape[0] * 2.0 ** -53
+        inputs = [k for k, _, _ in keys] + ([] if keep is None else [keep])
+        inputs += [t for r in reqs for t in r[:2] if t is not None]
+        assert vector_loads(inputs) == vec, f"sum64 {name}: loads"
+        if per_thread is not None:
+            assert per_thread_accumulators(K, reqs) == per_thread, \
+                f"sum64 {name}: instance"
+        want, wbad = segment_reduce_keyed_ref(keys, reqs, K, keep, num_rows)
+        first = None
+        for run in range(runs):
+            got, bad = segment_reduce_keyed(keys, reqs, K, keep, num_rows)
+            assert int(bad) == int(wbad), (name, int(bad), int(wbad))
+            err = max(err, seg_compare(torch, f"sum64 {name}", got, want,
+                                       reqs, f64_rtol=f64_rtol))
+            if first is None:
+                first = got
+            else:  # every output, f64 sums included, the same bits
+                assert all(torch.equal(bits(a), bits(b))
+                           for a, b in zip(got, first)), \
+                    f"sum64 {name}: run {run + 1} differs"
+        names.append(name)
+        return got, want
+
+    # TPC-H Q1's shape
+    n = Q1_ROWS
+    u = torch.rand(n, device=dev, generator=gen)
+    rf = ((u >= 0.25).to(torch.int32) + (u >= 0.75).to(torch.int32))
+    del u
+    ls = torch.where(rf == 1, (torch.rand(n, device=dev, generator=gen)
+                               < 0.99).to(torch.int32), 0).to(torch.int32)
+    keep = torch.rand(n, device=dev, generator=gen) < 0.98
+    nr = torch.tensor(n - 1001, dtype=torch.int64, device=dev)
+    qty = torch.randint(1, 51, (n,), device=dev, generator=gen).double()
+    price = torch.round(torch.rand(n, device=dev, generator=gen,
+                                   dtype=torch.float64) * 1e7) / 100
+    disc = torch.randint(0, 11, (n,), device=dev,
+                         generator=gen).double() / 100
+    tax = torch.randint(0, 9, (n,), device=dev, generator=gen).double() / 100
+    dp = price * (1 - disc)
+    charge = dp * (1 + tax)
+    q1_keys = [(rf, 0, 3), (ls, 0, 2)]
+    q1_reqs = [(None, None, "count"), (None, None, "firstpos")] + [
+        (x, None, "sum64") for x in (qty, price, dp, charge, disc)]
+    # each f64 sum also within DOUBLE_RTOL of torch.sum's tree over the
+    # slot's rows (the plain version's one word a slot is the looser)
+    got, want = keyed("Q1 shape, 3 runs", q1_keys, q1_reqs, 6, keep, nr,
+                      per_thread=True, runs=3)
+    assert torch.equal(got[2], want[2]), "sum64 Q1: sum_qty is not exact"
+    ok = keep & (torch.arange(n, device=dev) < nr)
+    slot = rf * 2 + ls
+    q1_rel = 0.0
+    for j, x in enumerate((qty, price, dp, charge, disc)):
+        for s in range(6):
+            tree = torch.where(ok & (slot == s), x, 0.0).sum()
+            q1_rel = max(q1_rel, float((got[2 + j][s] - tree).abs() / tree))
+    assert q1_rel <= DOUBLE_RTOL, f"sum64 Q1: rel diff {q1_rel:.3g}"
+    want_rel = max(float(((w - g).abs() / g.abs().clamp(min=1e-300)).max())
+                   for w, g in zip(want[2:], got[2:]))
+    del tax, ok, slot
+
+    # 20M rows: every other case
+    m = 20_000_003
+
+    def r():
+        return torch.rand(m, device=dev, generator=gen)
+
+    k1min, k2min = 5_000_000_000, -1000
+    k1 = k1min + torch.randint(0, 20, (m,), device=dev, generator=gen)
+    k2 = (k2min + torch.randint(0, 15, (m,), device=dev,
+                                generator=gen)).to(torch.int32)
+    k1 = torch.where(r() < 0.005, k1min - 1, k1)
+    k2 = torch.where(r() < 0.005, k2min + 15, k2).to(torch.int32)
+    kp = r() < 0.7
+    valid = r() < 0.9
+    g64 = torch.randint(0, 64, (m,), device=dev, generator=gen,
+                        dtype=torch.int32)
+    big = torch.randint(2 ** 61, 2 ** 63 - 1, (m,), device=dev,
+                        generator=gen)
+    iv = torch.randint(2 ** 30, 2 ** 31 - 1, (m,), device=dev, generator=gen,
+                       dtype=torch.int32)
+    fv = torch.rand(m, device=dev, generator=gen)
+    dv = torch.rand(m, device=dev, generator=gen, dtype=torch.float64)
+    got, _ = keyed("i64 wrap and i32 widening, K = 64, per-thread",
+                   [(g64, 0, 64)],
+                   [(big, valid, "sum64"), (iv, None, "sum64"),
+                    (None, None, "count"), (fv, None, "sum"),
+                    (iv, valid, "max"), (dv, None, "sum64")], 64, kp,
+                   m - 77, per_thread=True)
+    exact = torch.zeros(64, dtype=torch.float64, device=dev).index_add_(
+        0, g64[kp].long(), big[kp].double() * valid[kp])
+    assert bool((exact > 2.0 ** 63).any()), "sum64: no i64 sum wraps"
+    # an f64 lane whose slots 0, 1 and 2 hold a NaN, an inf and both
+    # infinities in counted rows, and slot 4 only -0.0; the other values
+    # positive
+    slot = (k1 - k1min) * 15 + (k2.long() - k2min)
+    live = kp & valid & (torch.arange(m, device=dev) < m - 1234)
+
+    def rows_of(s, k):
+        return torch.nonzero((slot == s) & live)[:k, 0]
+
+    dn = dv.clone()
+    dn[rows_of(0, 1)] = float("nan")
+    dn[rows_of(1, 1)] = float("inf")
+    dn[rows_of(2, 2)] = torch.tensor([float("inf"), float("-inf")],
+                                     dtype=torch.float64, device=dev)
+    dn = torch.where(slot == 4, torch.full_like(dn, -0.0), dn)
+    keys300 = [(k1, k1min, 20), (k2, k2min, 15)]
+    every = [(None, None, "count"), (None, valid, "count"),
+             (dn, valid, "sum64"), (fv, None, "sum64"), (big, None, "sum64"),
+             (iv, valid, "sum64"), (fv, valid, "sum"), (iv, None, "sum"),
+             (iv, valid, "min"), (fv, None, "max"), (None, None, "firstpos"),
+             (None, valid, "lastpos")]
+    mr = torch.tensor(m - 1234, dtype=torch.int64, device=dev)
+    got, want = keyed("every mode, K = 300, INT64 + INT32 keys, per-warp",
+                      keys300, every, 300, kp, mr, per_thread=False)
+    for x in (got[2], want[2]):
+        assert bool(x[0].isnan()) and bool(x[1] == float("inf")) and \
+            bool(x[2].isnan()), "sum64: the non-finite slots"
+        assert bool(x[4] == 0) and not bool(torch.signbit(x[4])), \
+            "sum64: a slot of -0.0 rows is not +0.0"
+    ka = torch.randint(0, 32, (m,), device=dev, generator=gen,
+                       dtype=torch.int32)
+    kb = torch.randint(-3, 67, (m,), device=dev, generator=gen)
+    sixteen = every + [(dv, None, "sum64"), (big, valid, "sum64"),
+                       (fv, None, "min"), (dv, valid, "sum64")]
+    keyed("K = 2048, 16 requests, 64-bit and 32-bit words in groups",
+          [(ka, 0, 32), (kb, 0, 64)], sixteen, 2048, None, None,
+          per_thread=False)
+    o = 3
+    keyed("odd-offset views, per-thread", [(k2[o:], k2min, 15)],
+          [(None, None, "count"), (dv[o:], valid[o:], "sum64"),
+           (iv[o:], None, "sum64"), (fv[o:], None, "sum64")], 15, kp[o:],
+          None, vec=False, per_thread=True)
+    keyed("odd-offset views, per-warp", [(k1[o:], k1min, 20),
+                                         (k2[o:], k2min, 15)],
+          [(big[o:], valid[o:], "sum64"), (dv[o:], None, "sum64"),
+           (None, None, "lastpos")], 300, None, m - 99, vec=False,
+          per_thread=False)
+    del k1, k2, kp, valid, g64, big, iv, fv, dv, dn, slot, live, ka, kb
+    del every
+    del sixteen
+    torch.cuda.synchronize()
+
+    # timed at Q1's shape: rf, ls (int32), keep (bool), five f64 lanes in;
+    # a count (int64), firstpos (int32) and five f64 sums of 6 slots out
+    kernels.reset_launches()
+    segment_reduce_keyed(q1_keys, q1_reqs, 6, keep, nr)
+    launched = dict(kernels.launches)
+    t = timings(torch,
+                lambda: segment_reduce_keyed(q1_keys, q1_reqs, 6, keep, nr),
+                lambda: segment_reduce_keyed_ref(q1_keys, q1_reqs, 6, keep,
+                                                 nr), None,
+                n * (4 + 4 + 1 + 5 * 8) + 6 * (8 + 4 + 5 * 8))
+    t["launches"] = launched["segment_reduce"]
+    t["rel_err_vs_tree"] = q1_rel
+    t["plain_rel_diff"] = want_rel
+    log(f"kernel segment_reduce 64-bit words: bit-exact but f64 sums (rtol "
+        f"{DOUBLE_RTOL}; Q1's integer-valued sum exact), NaN slots by isnan, "
+        f"runs bit-identical, on {len(names)} cases ({'; '.join(names)}; "
+        f"max abs diff {err:.6g}); at Q1's shape (n={n}: rf, ls, keep, 5 "
+        f"f64 lanes -> count, firstpos, 5 f64 sums of 6 slots): {t}")
     return {"max_abs_err": err, **t}
 
 
@@ -3929,6 +4131,7 @@ def main():
     check_lut_gather_slice(torch, fk)
     results.update({
         "segment_reduce": check_segment_reduce(torch, all_ids, v, keep),
+        "segment_reduce_64": check_segment_reduce_64(torch),
         "segment_reduce_small": check_segment_reduce_small(torch, all_ids, v),
         "spread": check_spread(torch, torch.from_numpy(dfact["v"]).to(dev)),
     })

@@ -121,9 +121,9 @@ def _bind(lib) -> None:
         "ss_lut_gather": [P, L, I, I, PP, PP, IP, P],
         "ss_segment_reduce_threads": [],
         "ss_segment_reduce_smem_bytes": [],
-        "ss_segment_reduce_plan": [L, I, I, IP, I, IP, LP],
-        "ss_segment_reduce": [I, PP, IP, LP, IP, P, P, L, L, I, I, IP, PP, PP,
-                              PP, P, P, I, I, I, P],
+        "ss_segment_reduce_plan": [L, I, I, IP, IP, I, IP, LP],
+        "ss_segment_reduce": [I, PP, IP, LP, IP, P, P, L, L, I, I, IP, IP,
+                              PP, PP, PP, P, P, I, I, I, P],
         "ss_spread_tile_rows": [],
         "ss_spread_bounds": [P, I, L, P, P],
         "ss_spread_expand": [P, L, P, I, ctypes.c_uint, PP, PP, IP, P],

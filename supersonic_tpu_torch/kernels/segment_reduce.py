@@ -27,6 +27,10 @@ Modes and results:
   * ``count``    1 a counted row (keyed form without values), or the sum of
                  0/1 int32 indicators -> int64, exact at any row count
   * ``sum``      f32 values -> f32; i32 values -> i32, wrapping mod 2^32
+  * ``sum64``    (keyed form) a 64-bit sum word: f64 or f32 values -> f64,
+                 i64 or i32 values -> i64, wrapping mod 2^64; a 32-bit
+                 value is widened a row.  The sum starts at +0.0, so a NaN
+                 or an inf reaches only its own slot
   * ``min``/``max``  f32 or i32 -> same dtype; f32 counts -0.0 as +0.0, and a
                  slot that holds a NaN of either sign gives NaN
   * ``firstpos``/``lastpos``  the first / last counted row index (keyed form
@@ -36,13 +40,13 @@ A slot no row reached keeps the init value of ``segment_reduce.py:311-316``:
 INT32_MIN for max and lastpos.
 
 The kernel has two instances, picked by the accumulators' footprint
-(``per_thread_accumulators``): when they fit in shared memory, an f32 sum
-has one accumulator word per thread and slot and every other request one
-per warp and slot (updated by shared-memory atomics, exact in any order);
-else every request has one per warp and slot, with the requests taken in
-groups.  It reads its inputs with 16-byte loads when
-every one of them starts on a 16-byte boundary (``vector_loads``), else
-with element loads.
+(``per_thread_accumulators``): when they fit in shared memory, an f64 or
+f32 sum has one accumulator word per thread and slot and every other
+request one per warp and slot (updated by shared-memory atomics, exact in
+any order); else every request has one per warp and slot, with the
+requests taken in groups.  A ``sum64`` word takes 8 bytes, the others 4.
+It reads its inputs with 16-byte loads when every one of them starts on a
+16-byte boundary (``vector_loads``), else with element loads.
 """
 from __future__ import annotations
 
@@ -59,18 +63,24 @@ MAX_REQUESTS = 16
 MAX_KEYS = 4
 THREADS = 256  # threads a block (kThreads of the source)
 SMEM_BYTES = 232448  # dynamic shared memory a block may hold (kSmemBytes)
-MODES = ("count", "sum", "min", "max", "firstpos", "lastpos")
+MODES = ("count", "sum", "sum64", "min", "max", "firstpos", "lastpos")
+WARPS = THREADS // 32
 
 _I32_MIN, _I32_MAX = -(2 ** 31), 2 ** 31 - 1
 
 
 def per_thread_accumulators(num_segments: int, requests) -> bool:
     """Whether a keyed call's ``requests`` take the per-thread instance: a
-    4-byte word for each f32 sum, slot and thread of a block, and for each
-    other request, slot and warp, fit in shared memory."""
-    f32 = sum(_code(m, v) == 0 for v, _, m in requests)
-    words = (f32 * THREADS + (len(requests) - f32) * (THREADS // 32))
-    return words * num_segments * 4 <= SMEM_BYTES
+    word for each float sum, slot and thread of a block, and for each
+    other request, slot and warp, fit in shared memory.  A ``sum64`` word
+    takes 8 bytes, every other 4."""
+    nbytes = 0
+    for v, _, m in requests:
+        code = _code(m, v)
+        float_sum = code in (_SUM_F32, _SUM_F64)
+        nbytes += ((THREADS if float_sum else WARPS)
+                   * (8 if code in (_SUM_F64, _SUM_I64) else 4))
+    return nbytes * num_segments <= SMEM_BYTES
 
 
 def vector_loads(tensors) -> bool:
@@ -80,13 +90,19 @@ def vector_loads(tensors) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
+_SUM_F32, _SUM_F64, _SUM_I64 = 0, 7, 8
+_WIDE_VALUES = (torch.float64, torch.int64)
+
+
 def _code(mode: str, values) -> int:
     """Mode code of csrc/segment_reduce.cu."""
-    is_float = values is not None and values.dtype == torch.float32
+    is_float = values is not None and values.dtype.is_floating_point
     if mode == "count":
         return 2
     if mode == "sum":
-        return 0 if is_float else 1
+        return _SUM_F32 if is_float else 1
+    if mode == "sum64":
+        return _SUM_F64 if is_float else _SUM_I64
     lo = mode in ("min", "firstpos")
     if is_float:
         return 5 if lo else 6
@@ -137,10 +153,11 @@ def _check(keys, requests, num_segments, keep, num_rows):
         if mode not in MODES:
             raise ValueError(f"segment_reduce: mode {mode!r}")
         if values is None:
-            if mode in ("sum", "min", "max"):
+            if mode in ("sum", "sum64", "min", "max"):
                 raise ValueError(f"segment_reduce: mode {mode!r} needs values")
         else:
-            row_lane(values, "values", (torch.float32, torch.int32))
+            row_lane(values, "values", (torch.float32, torch.int32)
+                     + (_WIDE_VALUES if mode == "sum64" else ()))
             if (mode in ("count", "firstpos", "lastpos")
                     and values.dtype != torch.int32):
                 raise ValueError(f"segment_reduce: mode {mode!r} takes int32 "
@@ -169,6 +186,11 @@ def segment_reduce_multi_ref(requests, segment_ids: torch.Tensor,
         elif mode == "sum" and v.dtype == torch.float32:
             res.append(torch.zeros(K, dtype=torch.float32, device=dev)
                        .index_add_(0, ids, v))
+        elif mode == "sum64":
+            # int64 adds wrap mod 2^64; float sums start at +0.0
+            dt = torch.float64 if v.is_floating_point() else torch.int64
+            res.append(torch.zeros(K, dtype=dt, device=dev)
+                       .index_add_(0, ids, v.to(dt)))
         elif mode == "sum":
             s = torch.zeros(K, dtype=torch.int64, device=dev).index_add_(
                 0, ids, v.long())
@@ -213,7 +235,7 @@ def segment_reduce_keyed_ref(keys, requests, num_segments: int, keep=None,
         if mode == "count":
             x = (ok.to(torch.int32) if values is None
                  else torch.where(ok, values, 0))
-        elif mode == "sum":
+        elif mode in ("sum", "sum64"):
             x = torch.where(ok, values, torch.zeros_like(values))
         else:
             if values is None:
@@ -317,7 +339,9 @@ def _marshal_and_launch(keys, requests, K, keep, num_rows, counter: str):
         row_limit = max(0, min(n, int(num_rows)))
     outs = []
     for values, _, mode in requests:
-        dt = (torch.int64 if mode == "count" else
+        code = _code(mode, values)
+        dt = (torch.int64 if mode == "count" or code == _SUM_I64 else
+              torch.float64 if code == _SUM_F64 else
               torch.int32 if values is None else values.dtype)
         outs.append(torch.empty(K, dtype=dt, device=dev))
     bad = torch.empty((), dtype=torch.int64, device=dev)
@@ -328,7 +352,10 @@ def _marshal_and_launch(keys, requests, K, keep, num_rows, counter: str):
     # the C side launches on the current device
     with torch.cuda.device(dev):
         nblocks, words = ctypes.c_int(), ctypes.c_longlong()
-        check(lib.ss_segment_reduce_plan(n, K, nreq, modes, int(per_thread),
+        loads = int_array([int(v is not None or d is not None)
+                           for v, d, _ in requests])
+        check(lib.ss_segment_reduce_plan(n, K, nreq, modes, loads,
+                                         int(per_thread),
                                          ctypes.byref(nblocks),
                                          ctypes.byref(words)),
               "segment_reduce plan")
@@ -340,6 +367,8 @@ def _marshal_and_launch(keys, requests, K, keep, num_rows, counter: str):
             int_array([int(k) for _, _, k in keys]),
             0 if keep is None else keep.data_ptr(), row_ptr, row_limit, n, K,
             nreq, modes,
+            int_array([int(v is not None and v.dtype in _WIDE_VALUES)
+                       for v, _, _ in requests]),
             addr_array([0 if v is None else v.data_ptr()
                         for v, _, _ in requests]),
             addr_array([0 if d is None else d.data_ptr()

@@ -11,11 +11,14 @@ the consumer re-orders the rows anyway (Sort binds its child
   * Dense path: when the group keys have a planned composite domain of at
     most 2048 slots (integer, DATE and DATETIME keys with planner
     statistics, STRING/BINARY keys by dictionary size, ENUM keys by their
-    value map) and every input fits the kernel's 32-bit
-    accumulators, every aggregate is one request of ONE keyed
-    segment-reduce launch (kernels/segment_reduce.py), which reads the raw
-    key lanes and codes the slots itself; the K slots are then finalized
-    and re-ranked.
+    value map) and every aggregate fits the kernel's accumulators (32-bit
+    words, and 64-bit sum words for a DOUBLE or INT64 SUM), every aggregate
+    is one request of ONE keyed segment-reduce launch
+    (kernels/segment_reduce.py), which reads the raw key lanes and codes
+    the slots itself; the K slots are then finalized and re-ranked.  The
+    JAX package sends every SUM into an 8-byte output to its sort path,
+    because the TPU has no 64-bit accumulators; the port takes those on
+    the dense path (the rows are the same, the float sums within rounding).
   * Sort path, every other group-by: a stable sort of the kept rows by
     their group codes (ops/keys.py::group_code_columns) puts each group in
     one run; runs begin where adjacent codes differ (so NULL equals NULL,
@@ -178,6 +181,22 @@ _DENSE_DOMAIN_MAX = 2048  # segment_reduce MAX_SEGMENTS
 # inputs the kernel's 32-bit accumulators take (a BOOL as a 0/1 int32)
 _I32_INPUTS = (DataType.FLOAT, DataType.INT32, DataType.BOOL, DataType.DATE,
                DataType.ENUM, DataType.STRING, DataType.BINARY)
+# SUMs into an 8-byte output the kernel's 64-bit sum words take: output ->
+# inputs (a 4-byte input widened a row, a BOOL as a 0/1 int32)
+_SUM64_INPUTS = {
+    DataType.DOUBLE: (DataType.DOUBLE, DataType.FLOAT),
+    DataType.INT64: (DataType.INT64, DataType.INT32, DataType.BOOL,
+                     DataType.DATE),
+}
+
+
+def _sum64(spec: AggSpec, schema_in: TupleSchema) -> bool:
+    """Whether a SUM aggregates in the kernel's 64-bit sum words: its
+    output type is 8 bytes wide and its input one the words take."""
+    if spec.aggregation != Aggregation.SUM:
+        return False
+    out_t = _resolve_output_attr(spec, schema_in).type
+    return schema_in.lookup(spec.input).type in _SUM64_INPUTS.get(out_t, ())
 
 
 def _dense_domain(cb, names, key_attrs, specs, schema_in, options=None):
@@ -185,15 +204,24 @@ def _dense_domain(cb, names, key_attrs, specs, schema_in, options=None):
     most 2048 slots: per key (name, attr, kmin, K_i), from the value map of
     an ENUM key, the dictionary size of a STRING/BINARY key or the planner
     statistics of an INT32/INT64/UINT32/DATE/DATETIME key.  None sends the
-    group-by to the sort path, as the JAX package does: a
-    ``max_unique_keys_in_result`` clamp, a DISTINCT or CONCAT aggregate, a
-    nullable key, a key without statistics, more slots, a 64-bit or
-    DOUBLE input of SUM/MIN/MAX, or a SUM into an 8-byte output (SUM
-    aggregates in its output type, which the kernel's 32-bit accumulators
-    do not hold).  Every other output type is the kernel's result cast, as
-    in the JAX package's dense path.  A UINT32 input lies in int64 lanes
-    here, so it takes the sort path (the JAX package sums it densely; the
-    rows are the same)."""
+    group-by to the sort path: a ``max_unique_keys_in_result`` clamp, a
+    DISTINCT or CONCAT aggregate, a nullable key, a key without
+    statistics, more slots, a 64-bit or DOUBLE input of MIN/MAX, or a SUM
+    the kernel's words do not hold.  SUM aggregates in its output type: a
+    DOUBLE or FLOAT input into a DOUBLE output, and an INT64, INT32, BOOL
+    or DATE input into an INT64 output, take the kernel's 64-bit sum words
+    (``_sum64``); another SUM into an 8-byte output (UINT64, DOUBLE from an
+    integer, INT64 from a float) and a 64-bit or DOUBLE input into a
+    narrower output take the sort path.  Every other output type is the
+    kernel's result cast, as in the JAX package's dense path.
+
+    Where the port differs from the JAX package's route: the JAX package
+    refuses every SUM into an 8-byte output, because the TPU has no 64-bit
+    accumulators; the H100 has f64 and i64 in registers and shared memory,
+    so the port's kernel sums those in 64-bit words and TPC-H Q1's DOUBLE
+    sums, or an INT64 SUM into a few groups, stay dense.  A UINT32 input
+    lies in int64 lanes here, so it takes the sort path (the JAX package
+    sums it densely).  The rows are the same on either route."""
     if options is not None and options.max_unique_keys_in_result:
         return None
     if any(s.distinct for s in specs):
@@ -228,6 +256,8 @@ def _dense_domain(cb, names, key_attrs, specs, schema_in, options=None):
             continue  # any type: counts, or one gather of K rows at the end
         if s.aggregation == Aggregation.CONCAT:
             return None
+        if _sum64(s, schema_in):
+            continue
         if schema_in.lookup(s.input).type not in _I32_INPUTS:
             return None
         if (s.aggregation == Aggregation.SUM
@@ -251,7 +281,8 @@ def _dense_grouped_aggregate(t: Table, dims, specs, schema_in, out_dicts,
     finalization.  A plan with more key dimensions than the kernel takes
     (``MAX_KEYS``) is bound to pass one composite int32 slot lane instead,
     computed here (-1 outside the domain, so the kernel counts those rows
-    all the same)."""
+    all the same).  A SUM into an 8-byte output asks for a 64-bit sum word
+    (``sum64``); its result is then cast to the output type as any other."""
     from ..kernels.segment_reduce import MAX_KEYS, segment_reduce_keyed
 
     dev = t.device
@@ -297,8 +328,10 @@ def _dense_grouped_aggregate(t: Table, dims, specs, schema_in, out_dicts,
         if agg == Aggregation.COUNT:
             valid_key(s)
         elif agg == Aggregation.SUM:
+            # a 64-bit sum word where the output is 8 bytes (_sum64)
+            mode = "sum64" if _sum64(s, schema_in) else "sum"
             valid_key(s)
-            ask(("sum", s.input), _i32(c.values), c.valid, "sum")
+            ask((mode, s.input), _i32(c.values), c.valid, mode)
         elif agg in (Aggregation.MIN, Aggregation.MAX):
             # 32-bit inputs only (_dense_domain): the kernel counts -0.0 as
             # +0.0, as monotone_code does
@@ -341,7 +374,8 @@ def _dense_grouped_aggregate(t: Table, dims, specs, schema_in, out_dicts,
         if agg == Aggregation.COUNT:
             cols_k[s.output] = Column(got(vkey).to(odt), None)
         elif agg == Aggregation.SUM:
-            cols_k[s.output] = Column(got(("sum", s.input)).to(odt),
+            mode = "sum64" if _sum64(s, schema_in) else "sum"
+            cols_k[s.output] = Column(got((mode, s.input)).to(odt),
                                       got(vkey) > 0)
         elif agg in (Aggregation.MIN, Aggregation.MAX):
             mode = "min" if agg == Aggregation.MIN else "max"

@@ -554,6 +554,119 @@ def test_dense_widening_matches_jax():
     assert_rows_match(got, want, 1)
 
 
+def test_q1_shaped_group_by_is_dense_and_matches_jax():
+    """TPC-H Q1's group-by: STRING keys of 3 and 2 codes (6 slots) over a
+    Compute over a Filter, five DOUBLE SUMs (one integer-valued, as
+    sum_qty) and COUNT(*) into INT64.  The port takes the dense route (the
+    kernel's 64-bit sum words), the JAX package its sort path; the keys
+    and the count equal, the DOUBLE sums within F64_TOL of each group's
+    sum of |x|, the integer-valued one exact."""
+    rng = np.random.default_rng(34)
+    n = 6000
+    rf = rng.choice(3, n, p=[0.25, 0.5, 0.25]).astype(np.int32)
+    ls = np.where(rf == 1, (rng.random(n) < 0.99).astype(np.int32), 0)
+    qty = rng.integers(1, 51, n).astype(np.float64)
+    price = np.round(rng.random(n) * 1e5, 2)
+    disc = rng.integers(0, 11, n) / 100
+    tax = rng.integers(0, 9, n) / 100
+    ship = rng.integers(8000, 10600, n).astype(np.int32)
+    cols = (("rf", "STRING", False), ("ls", "STRING", False),
+            ("qty", "DOUBLE", False), ("price", "DOUBLE", False),
+            ("disc", "DOUBLE", False), ("tax", "DOUBLE", False),
+            ("ship", "DATE", False))
+    jt, tt = tables(J, T, cols, {"rf": rf, "ls": ls, "qty": qty,
+                                 "price": price, "disc": disc, "tax": tax,
+                                 "ship": ship},
+                    {"rf": ("A", "N", "R"), "ls": ("F", "O")})
+
+    def plan(ns, t):
+        c, A, D = ns.col, ns.Aggregation, ns.DataType
+        one = ns.Const(1.0, D.DOUBLE)
+        keep = ns.Filter(c("ship") <= ns.Const(10400, D.DATE),
+                         ns.ScanTable(t))
+        dp = c("price") * (one - c("disc"))
+        rows = ns.Compute([c("rf"), c("ls"), c("qty"), c("price"),
+                           c("disc"), dp.as_("dp"),
+                           (dp * (one + c("tax"))).as_("charge")], keep)
+        return ns.GroupAggregate(
+            ["rf", "ls"],
+            [ns.AggSpec(A.SUM, "qty", "sum_qty"),
+             ns.AggSpec(A.SUM, "price", "sum_price"),
+             ns.AggSpec(A.SUM, "dp", "sum_dp"),
+             ns.AggSpec(A.SUM, "charge", "sum_charge"),
+             ns.AggSpec(A.SUM, "disc", "sum_disc"),
+             ns.AggSpec(A.COUNT, None, "cnt", output_type=D.INT64)],
+            rows, ns.GroupAggregateOptions(estimated_result_row_count=6))
+
+    assert plan(T, tt).bind(T.BindContext()).route == "dense"
+    got, want = _run(plan, jt, tt)
+    live = ship <= 10400
+    dp = price * (1.0 - disc)
+    keys = [(np.array(["A", "N", "R"], object)[rf], None),
+            (np.array(["F", "O"], object)[ls], None)]
+    tol = {name: (F64_TOL, group_sums(keys, x, live=live))
+           for name, x in (("sum_qty", qty), ("sum_price", price),
+                           ("sum_dp", dp), ("sum_charge", dp * (1.0 + tax)),
+                           ("sum_disc", disc))}
+    assert_rows_match(got, want, 2, tol)
+    exact = group_sums(keys, qty, live=live)
+    assert {(r[0], r[1]): r[2] for r in got.to_pylist()} == {
+        k: v[0] for k, v in exact.items()}
+
+
+def test_int64_sums_over_two_keys_are_dense_and_match_jax():
+    """SSB Q4.1's group-by shape: INT32 keys of 7 and 25 values (175
+    slots), SUMs into INT64 of an INT32 input (past 2^31 a group), a
+    nullable INT64 input (wrapping mod 2^64) and a DATE, and a FLOAT SUM
+    into DOUBLE.  The port takes the dense route, the JAX package its sort
+    path; the integer columns equal, the DOUBLE sum within F64_TOL of each
+    group's sum of |x|.  A BOOL SUM into INT64 is held against numpy (the
+    JAX package leaves row 0 out of a BOOL SUM on either of its routes)."""
+    rng = np.random.default_rng(35)
+    n = 8000
+    year = rng.integers(1992, 1999, n).astype(np.int32)
+    nation = rng.integers(0, 25, n).astype(np.int32)
+    i = rng.integers(2**30, 2**31 - 1, n).astype(np.int32)
+    lv = rng.random(n) > 0.2
+    l = rng.integers(2**61, 2**62, n)
+    f = (rng.standard_normal(n) * 100).astype(np.float32)
+    cols = (("year", "INT32", False), ("nation", "INT32", False),
+            ("i", "INT32", False), ("l", "INT64", True),
+            ("b", "BOOL", False), ("dt", "DATE", False),
+            ("f", "FLOAT", False))
+    b = rng.random(n) < 0.4
+    jt, tt = tables(J, T, cols, {
+        "year": year, "nation": nation, "i": i, "l": (l, lv), "b": b,
+        "dt": rng.integers(0, 20000, n).astype(np.int32), "f": f})
+
+    def plan(ns, t, extra=()):
+        A, D = ns.Aggregation, ns.DataType
+        return ns.GroupAggregate(
+            ["year", "nation"],
+            [ns.AggSpec(A.SUM, "i", "si", D.INT64),
+             ns.AggSpec(A.SUM, "l", "sl"),
+             ns.AggSpec(A.SUM, "dt", "sdt", D.INT64),
+             ns.AggSpec(A.SUM, "f", "sf", D.DOUBLE),
+             ns.AggSpec(A.COUNT, "l", "cl"), *extra], ns.ScanTable(t))
+
+    assert plan(T, tt).bind(T.BindContext()).route == "dense"
+    got, want = _run(plan, jt, tt)
+    keys = [(year, None), (nation, None)]
+    assert_rows_match(got, want, 2, {"sf": (F64_TOL, group_sums(keys, f))})
+    rows = got.to_pylist()
+    assert len(rows) == 175
+    for yr, nat, si, sl, *_ in rows:
+        g = (year == yr) & (nation == nat)
+        assert si == int(i[g].astype(object).sum()) and si > 2**31
+        exact = int(l[g & lv].astype(object).sum())
+        assert sl == (exact + 2**63) % 2**64 - 2**63
+    with_bool = plan(T, tt, [T.AggSpec(T.Aggregation.SUM, "b", "sb",
+                                       T.DataType.INT64)])
+    assert with_bool.bind(T.BindContext()).route == "dense"
+    for yr, nat, *_, sb in T.execute(with_bool).to_pylist():
+        assert sb == int(b[(year == yr) & (nation == nat)].sum())
+
+
 # (name, key column, key nullable, spec (aggregation, input, out type))
 ROUTES = [
     ("int_key", "k", False, ("SUM", "f", None)),
@@ -571,15 +684,20 @@ ROUTES = [
     ("first_of_double", "k", False, ("FIRST", "d", None)),
     ("count_of_int64", "k", False, ("COUNT", "l", None)),
     ("max_of_bool", "k", False, ("MAX", "b", None)),
+    ("double_sum", "k", False, ("SUM", "d", None)),
 ]
+# SUMs into an 8-byte output: dense in the port (its kernel's 64-bit sum
+# words), sort in the JAX package (the TPU has no 64-bit accumulators)
+PORT_DENSE_ONLY = {"sum_into_int64", "sum_into_double", "double_sum"}
 
 
 @pytest.mark.parametrize("name,key,nullable,spec", ROUTES,
                          ids=[r[0] for r in ROUTES])
 def test_dense_or_sort_path_as_jax_chooses(name, key, nullable, spec):
-    """The port sends a group-by to the dense path exactly where the JAX
-    package does (``_dense_domain`` of each, on the same bound scan), and
-    to the sort path everywhere else."""
+    """The port sends a group-by to the dense path where the JAX package
+    does (``_dense_domain`` of each, on the same bound scan), and to the
+    sort path everywhere else, but for the SUMs into an 8-byte output of
+    ``PORT_DENSE_ONLY``, which only the port takes densely."""
     rng = np.random.default_rng(33)
     n = 64
     cols = (("k", "INT32", False), ("kn", "INT32", True),
@@ -611,6 +729,11 @@ def test_dense_or_sort_path_as_jax_chooses(name, key, nullable, spec):
 
     jd = decide(J, JA, jt, (J.GroupAggregateOptions(),))
     td = decide(T, TA, tt, ())
+    if name in PORT_DENSE_ONLY:
+        assert jd is None and td is not None
+        assert td[1] == 10 and [(d[0], d[2], d[3]) for d in td[0]] == \
+            [("k", 0, 10)]
+        return
     assert (td is None) == (jd is None)
     if td is not None:
         assert td[1] == jd[1]  # K

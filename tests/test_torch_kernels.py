@@ -366,6 +366,97 @@ def test_segment_reduce_host_helpers():
     assert seg_vector_loads([x, x[4:]]) and not seg_vector_loads([x, x[1:]])
 
 
+def _sum64_keys(rng, n):
+    """Two key lanes (an INT32 one with rows below and past its domain, an
+    INT64 one past int32) over K = 6 x 2 = 12 slots, a keep mask and a row
+    count; slot 11 (k1 = 2, k2 = 1) gets no row.  Returns (keys, keep,
+    num_rows, the slot of each live row or -1, the live rows dropped)."""
+    k1 = rng.integers(-5, 5, n).astype(np.int32)  # domain [-3, 3)
+    big = 5_000_000_000
+    k2 = big + rng.integers(0, 2, n)
+    k2[(k1 == 2) & (k2 == big + 1)] = big
+    keep = rng.random(n) < 0.9
+    num_rows = n - 17
+    ids, live, bad = _jax_ids([(k1, -3, 6), (k2, big, 2)], keep, num_rows)
+    assert bad > 0 and not (ids == 11).any()
+    return [(k1, -3, 6), (k2, big, 2)], keep, num_rows, ids, bad
+
+
+@pytest.mark.parametrize("case", ["f64", "f32_widened", "i64_wraps",
+                                  "i32_widened"])
+def test_segment_reduce_sum64_matches_numpy(case):
+    """The plain version of the 64-bit sum words (``sum64``: SUM_F64 and
+    SUM_I64) against numpy, over two key lanes with live rows dropped out
+    of the domain, a keep mask, a row count and NULL values: f64 slots
+    holding a NaN, an inf, both infinities, only -0.0 (+0.0 out: a sum
+    starts at +0.0) and no rows (0); i64 sums wrapping past INT64_MAX; f32
+    and i32 values widened a row (so no f32 rounding, no int32 wrap)."""
+    rng = np.random.default_rng(40 + len(case))
+    n = 5000
+    keys, keep, num_rows, ids, want_bad = _sum64_keys(rng, n)
+    valid = rng.random(n) < 0.85
+    ok = (ids >= 0) & valid
+    if case in ("f64", "f32_widened"):
+        dt = np.float64 if case == "f64" else np.float32
+        v = (rng.standard_normal(n) * 1e3).astype(dt)
+        where = lambda s: np.flatnonzero(ok & (ids == s))  # noqa: E731
+        v[where(0)[0]] = np.nan
+        v[where(1)[0]] = np.inf
+        v[where(2)[:2]] = [np.inf, -np.inf]
+        v[ids == 10] = -0.0
+        want = np.zeros(12)
+        with np.errstate(invalid="ignore"):  # inf + -inf in slot 2
+            np.add.at(want, ids[ok], v[ok].astype(np.float64))
+    else:
+        if case == "i64_wraps":
+            v = rng.integers(2**61, 2**63 - 1, n)
+        else:
+            v = rng.integers(2**30, 2**31 - 1, n).astype(np.int32)
+        want = np.zeros(12, np.int64)
+        np.add.at(want, ids[ok], v[ok].astype(np.int64))  # wraps mod 2^64
+        exact = [int(v[ok & (ids == s)].astype(object).sum())
+                 for s in range(12)]
+        assert max(exact) > (2**63 if case == "i64_wraps" else 2**31)
+    t = torch.from_numpy
+    (got, cnt), bad = segment_reduce_keyed(
+        [(t(lane), kmin, k) for lane, kmin, k in keys],
+        [(t(v), t(valid), "sum64"), (None, t(valid), "count")], 12,
+        keep=t(keep), num_rows=num_rows)
+    assert int(bad) == want_bad
+    got = got.numpy()
+    assert got.dtype == want.dtype
+    assert np.array_equal(cnt.numpy(), np.bincount(ids[ok], minlength=12))
+    if got.dtype == np.float64:
+        assert np.isnan(got[0]) and np.isnan(got[2]) and got[1] == np.inf
+        assert got[10] == 0 and not np.signbit(got[10]) and got[11] == 0
+        np.testing.assert_allclose(got, want, rtol=1e-13, equal_nan=True)
+    else:
+        assert np.array_equal(got, want)
+
+
+def test_per_thread_accumulators_reckon_8_byte_words():
+    """``sum64`` words take 8 bytes: an f64 sum (or an f32 widened into
+    one) 2 KB a slot per block, an i64 sum 64 bytes a slot; so Q1's five
+    f64 sums with a count and firstpos over K = 6 take the per-thread
+    instance, and the edges move to half the 4-byte words' K."""
+    d = torch.zeros(8, dtype=torch.float64)
+    f = torch.zeros(8)
+    l = torch.zeros(8, dtype=torch.int64)
+    i = torch.zeros(8, dtype=torch.int32)
+    q1 = [(None, None, "count"), (None, None, "firstpos")] + [
+        (d, None, "sum64")] * 5
+    assert per_thread_accumulators(6, q1)
+    assert per_thread_accumulators(113, [(d, None, "sum64")])
+    assert not per_thread_accumulators(114, [(d, None, "sum64")])
+    assert not per_thread_accumulators(114, [(f, None, "sum64")])
+    assert per_thread_accumulators(114, [(f, None, "sum")])
+    assert not per_thread_accumulators(2048, [(d, None, "sum64")])
+    assert per_thread_accumulators(2048, [(l, None, "sum64")])
+    assert not per_thread_accumulators(2048, [(l, None, "sum64")] * 2)
+    assert not per_thread_accumulators(2048, [(i, None, "sum64")] * 2)
+    assert per_thread_accumulators(2048, [(i, None, "sum")] * 2)
+
+
 @pytest.mark.parametrize("bad_call", [
     lambda k: segment_reduce_keyed([(k, 0, 4)], [(None, None, "sum")], 4),
     lambda k: segment_reduce_keyed([(k, 0, 4)], [(None, None, "count")], 5),
@@ -376,8 +467,14 @@ def test_segment_reduce_host_helpers():
     lambda k: segment_reduce_keyed([(k, 0, 4)], [(None, None, "median")], 4),
     lambda k: segment_reduce_keyed([(k, 0, 4)], [(k.float(), None,
                                                   "firstpos")], 4),
+    lambda k: segment_reduce_keyed([(k, 0, 4)], [(None, None, "sum64")], 4),
+    lambda k: segment_reduce_keyed([(k, 0, 4)], [(k.double(), None, "sum")],
+                                   4),
+    lambda k: segment_reduce_keyed([(k, 0, 4)], [(k.double(), None, "max")],
+                                   4),
 ], ids=["sum_without_values", "domain_mismatch", "float_key",
-        "five_keys", "unknown_mode", "float_positions"])
+        "five_keys", "unknown_mode", "float_positions", "sum64_without_values",
+        "f64_into_a_32_bit_sum", "f64_max"])
 def test_segment_reduce_keyed_rejects_bad_calls(bad_call):
     with pytest.raises(ValueError):
         bad_call(torch.zeros(8, dtype=torch.int32))

@@ -182,8 +182,9 @@ def test_operator_runs_name_their_class_and_route(recorded):
     runs = {(s.attrs["name"], s.attrs["route"]) for s in tracing.spans()
             if s.name.startswith("op.") and s.name.endswith(".run")}
     # the first dimension's key is its row id; the filtered sparse keys
-    # take the fat LUT; the INT64 SUM takes the sort path
-    assert runs == {("Sort", None), ("GroupAggregate", "sort"),
+    # take the fat LUT; the INT64 SUM over the planned (g, h) domain takes
+    # the dense path (the kernel's 64-bit sum words)
+    assert runs == {("Sort", None), ("GroupAggregate", "dense"),
                     ("HashJoin", "rowid"), ("HashJoin", "fat_lut"),
                     ("Filter", None), ("ScanTable", None)}
 
