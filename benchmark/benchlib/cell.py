@@ -148,17 +148,11 @@ def judge(results, data, limits: dict, device, low=False):
     return compare.checks(judged, limits), judged
 
 
-def setup(cell, seed: int, device, log_s):
-    """Generate the data, build the tables, warm up the cell's queries:
-    (data, program)."""
+def load(T, data: dict, device, log_s) -> dict:
+    """The port's Tables of ``data`` on ``device``, the card's memory peak
+    started anew before them."""
     import torch
 
-    import supersonic_tpu_torch as T
-
-    t = time.perf_counter()
-    gen = registry.load_module("generators", cell.config["generator"])
-    data = gen.generate(cell.config, seed, device)
-    log_s["generate"] = time.perf_counter() - t
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
         torch.cuda.empty_cache()
@@ -166,14 +160,40 @@ def setup(cell, seed: int, device, log_s):
     t = time.perf_counter()
     tables = build_tables(T, data, device)
     log_s["tables"] = time.perf_counter() - t
-    prog = Program(T, tables, [q["query"] for q in cell.traffic["queries"]])
+    return tables
+
+
+def warm_up(answer, cell, seed: int, device, log_s) -> list:
+    """Two rounds of the cell's queries through ``answer``, drawn from
+    ``seed + 1``: the seconds of each call of the second round."""
+    import torch
+
+    n = len(cell.traffic["queries"])
+    seconds = []
     t = time.perf_counter()
     warm = traffic.stream(cell.traffic, seed + 1)
-    for inst in itertools.islice(warm, 2 * len(cell.traffic["queries"])):
-        prog.answer(inst)
+    for inst in itertools.islice(warm, 2 * n):
+        t0 = time.perf_counter()
+        answer(inst)
+        seconds.append(time.perf_counter() - t0)
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
     log_s["warm_up"] = time.perf_counter() - t
+    return seconds[n:]
+
+
+def setup(cell, seed: int, device, log_s):
+    """Generate the data, build the tables, warm up the cell's queries:
+    (data, program)."""
+    import supersonic_tpu_torch as T
+
+    t = time.perf_counter()
+    gen = registry.load_module("generators", cell.config["generator"])
+    data = gen.generate(cell.config, seed, device)
+    log_s["generate"] = time.perf_counter() - t
+    tables = load(T, data, device, log_s)
+    prog = Program(T, tables, [q["query"] for q in cell.traffic["queries"]])
+    warm_up(prog.answer, cell, seed, device, log_s)
     return data, prog
 
 
@@ -234,15 +254,7 @@ def run(workload: str, seed: int, seconds: float, traced: bool, device,
     gc.collect()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
-    t = time.perf_counter()
-    numbers, judged = judge(results, data, cell.traffic.get("limits", {}),
-                            device)
-    log(f"reference and comparison: {time.perf_counter() - t:.2f} s, "
-        f"{len(results)} answers, {len({r.inst.key for r in results})} "
-        f"distinct")
-    for r in [r for r in results if r.error][:SHOWN_ERRORS]:
-        log(f"query {r.inst.query} {r.inst.params} raised:\n{r.error}")
-    bad = [not ok for _, ok, _ in judged]
+    numbers, bad = verdict(cell, results, data, device)
     line = {"correct": compare.passed(numbers), "attempted": len(results),
             "failed": sum(bad), "metrics": {}, "device": dev}
     if traced:
@@ -256,16 +268,41 @@ def run(workload: str, seed: int, seconds: float, traced: bool, device,
         dev["busy_s"], dev["window_s"] = tr.busy_s, tr.window_s
         line["breakdown"] = trace.breakdown(tr)
     else:
-        lat = [math.inf if b else r.seconds for r, b in zip(results, bad)]
-        values = stats.window_metrics(
-            lat, fact_rows(data) * (len(results) - sum(bad)), wall)
-        values["setup_s"] = setup_s
-        for m in cell.end_to_end:
-            v = values[m["name"]]
-            line["metrics"][m["name"]] = {
-                "value": v if math.isfinite(v) else None, "unit": m["unit"]}
+        line["metrics"] = end_to_end(cell, results, bad, data, wall,
+                                     setup_s)
     line["checks"] = numbers
     return line
+
+
+def verdict(cell, results, data, device):
+    """Every answer of the window against the reference, its time and the
+    first errors logged: (numbers compared, one flag a result: raised or
+    wrong)."""
+    t = time.perf_counter()
+    numbers, judged = judge(results, data, cell.traffic.get("limits", {}),
+                            device)
+    log(f"reference and comparison: {time.perf_counter() - t:.2f} s, "
+        f"{len(results)} answers, {len({r.inst.key for r in results})} "
+        f"distinct")
+    for r in [r for r in results if r.error][:SHOWN_ERRORS]:
+        log(f"query {r.inst.query} {r.inst.params} raised:\n{r.error}")
+    return numbers, [not ok for _, ok, _ in judged]
+
+
+def end_to_end(cell, results, bad, data, wall: float, setup_s: float):
+    """The cell's end-to-end metrics of a window of ``wall`` seconds: a
+    query that raised or was wrong has an infinite latency, and the rate
+    counts the whole fact table for each correct one."""
+    lat = [math.inf if b else r.seconds for r, b in zip(results, bad)]
+    values = stats.window_metrics(
+        lat, fact_rows(data) * (len(results) - sum(bad)), wall)
+    values["setup_s"] = setup_s
+    out = {}
+    for m in cell.end_to_end:
+        v = values[m["name"]]
+        out[m["name"]] = {"value": v if math.isfinite(v) else None,
+                          "unit": m["unit"]}
+    return out
 
 
 def _program_dir():

@@ -5,8 +5,9 @@ reduction of the trace to what the per-layer metrics read.
 Device activity is every kernel, memcpy and memset on the card.  Its union
 over the window is the device's busy time; what is left is idle, and each
 idle stretch is charged to the benchmark span open on the host at that time
-(``plan``, ``bind``, ``prepare``, ``run``, ``finish``, ``copy``; ``harness``
-between them).  A kernel is the program's own when its name is that of a
+(``plan``, ``bind``, ``prepare``, ``run``, ``finish``, ``copy``; on a cell of
+many cards ``dispatch``, ``run``, ``copy`` and ``agree``; ``harness`` between
+them).  A kernel is the program's own when its name is that of a
 ``__global__`` function in the program's ``csrc`` sources or of a
 ``@triton.jit`` function in its Python sources, read from the program's
 files at run time, so a kernel that a later change adds is counted as its
@@ -20,7 +21,8 @@ import pathlib
 import re
 from dataclasses import dataclass, field
 
-SPANS = ("plan", "bind", "prepare", "run", "finish", "copy")
+SPANS = ("plan", "bind", "prepare", "run", "finish", "copy", "dispatch",
+         "agree")
 _GLOBAL = re.compile(
     r"__global__\s+void\s+(?:__launch_bounds__\s*\([^)]*\)\s*)?(\w+)\s*\(")
 _TRITON = re.compile(r"@triton\.jit[^\n]*\n\s*def\s+(\w+)\s*\(")

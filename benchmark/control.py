@@ -10,7 +10,10 @@ the reference computed in the precision just below the one that the
 configuration states (``low``: int32 sums that wrap for exact INT64 sums,
 float32 for DOUBLE), over the same queries, compared in the same way (the
 control's reading).  One JSON line a seed, then one with the largest
-program reading and the smallest control reading of each number.
+program reading and the smallest control reading of each number.  In a cell
+on P > 1 cards the program's reading comes from a run of its ranks
+(``benchlib/cards.py``), and the control's from the low-precision
+reference on rank 0, over the same queries and the whole data set.
 """
 import argparse
 import json
@@ -38,12 +41,21 @@ def control_results(results, data, device):
     return out
 
 
+def chips(workload) -> int:
+    from benchlib import registry
+
+    return next(w["chips"] for w in registry.manifest()["workloads"]
+                if w["name"] == workload)
+
+
 def readings(workload, seed, seconds, device, config=None) -> dict:
     """The program's and the control's numbers compared for one seed."""
     import torch
 
     from benchlib import cell, compare, registry, traffic
 
+    if chips(workload) > 1:
+        return _ranked_readings(workload, seed, seconds, device, config)
     c = registry.cell(workload)
     if config is not None:
         c.config = config
@@ -64,6 +76,19 @@ def readings(workload, seed, seconds, device, config=None) -> dict:
             "control_correct": compare.passed(control)}
 
 
+def _ranked_readings(workload, seed, seconds, device, config) -> dict:
+    from benchlib import cards, compare
+
+    first = cards.run_ranks(workload, chips(workload), seed, seconds, False,
+                            device, time.perf_counter(), config,
+                            control=True)[0]
+    return {"seed": seed, "answers": first["attempted"],
+            "program": {k: v["value"] for k, v in first["checks"].items()},
+            "program_correct": compare.passed(first["checks"]),
+            "control": {k: v["value"] for k, v in first["control"].items()},
+            "control_correct": compare.passed(first["control"])}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
@@ -73,8 +98,10 @@ def main(argv=None) -> int:
     sys.path[:0] = [str(BENCH), str(BENCH.parent)]
     import torch
 
-    if not torch.cuda.is_available():
-        print("control: no CUDA device", file=sys.stderr)
+    if (not torch.cuda.is_available()
+            or torch.cuda.device_count() < chips(args.workload)):
+        print(f"control: {args.workload} needs {chips(args.workload)} CUDA "
+              f"device(s)", file=sys.stderr)
         return 2
     torch.set_num_threads(1)
     lines = []

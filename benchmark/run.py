@@ -14,10 +14,12 @@ the per-layer metrics, the device's busy and window seconds and a
 breakdown.  Every answer of the window is compared with the plain
 reference (``benchmark/reference``) after the window; the numbers compared
 are printed with their limits as the last lines of standard error and
-under ``checks``, last on the result line.
+under ``checks``, last on the result line.  A cell on P > 1 cards runs one
+rank a card (``benchlib/cards.py``), with rank 0 as the coordinator.
 
-Exits 2 without a CUDA card or without the program beside the benchmark,
-3 if JAX or the JAX package was loaded; no result is printed then.
+Exits 2 without as many CUDA cards as the cell asks for or without the
+program beside the benchmark, 3 if JAX or the JAX package was loaded, 4 if
+a rank of a cell on many cards failed or hung; no result is printed then.
 """
 import time
 
@@ -99,8 +101,18 @@ def main(argv=None) -> int:
               f"({supersonic_tpu_torch.__file__})", file=sys.stderr)
         return 2
     torch.set_num_threads(1)
-    line = cell.run(args.workload, args.seed, args.seconds,
-                    bool(args.trace), "cuda", started)
+    if chips == 1:
+        line = cell.run(args.workload, args.seed, args.seconds,
+                        bool(args.trace), "cuda", started)
+    else:
+        from benchlib import cards
+
+        try:
+            line = cards.run(args.workload, chips, args.seed, args.seconds,
+                             bool(args.trace), "cuda", started)
+        except cards.Failed as e:
+            print(f"{args.workload}: {e}", file=sys.stderr)
+            return e.code
     found = cell.forbidden_modules()
     if found:
         print(f"loaded in this process: {', '.join(found)}", file=sys.stderr)
