@@ -56,7 +56,7 @@ take the merge probe, STRING keys and the outer join types:
      headline's 100M rows (SUM v, COUNT(*), SUM d DOUBLE, MAX v: the sort
      path, twice, bit for bit); (j) TPC-H Q1's shape, a DOUBLE SUM into
      64 groups under a fused Filter by an INT64 key of huge values (the
-     sort path over a compacted order, twice, bit for bit); (h)
+     sort path over the kept rows' compacted ids, twice, bit for bit); (h)
      bench_ops.py:234-238's "groupby_str
      8M->50" at 100M rows (dense by the dictionary, one segment-reduce
      launch); (i) the headline through the aggregate pushdown binding,
@@ -143,7 +143,10 @@ take the merge probe, STRING keys and the outer join types:
      full-size spills under a token that interrupts at its fourth poll
      (tests/test_errors.py's FlipAfter(3)): each raises Interrupted and
      leaves no file, the rerun equals the in-memory plan.  Each of the five
-     CUDA kernels must launch in (am)
+     CUDA kernels must launch in (am).  Then (an), the star's group-by at
+     SSB SF 20: 120M rows of capacity, two INT32/STRING keys and an INT64
+     SUM under a keep mask of ~1M, no and every row, exact against numpy,
+     with the GroupAggregate node's CUDA-event ms
   5. the median times of the headline query (under both bindings, and
      its aggregate in insertion order under both), of join (a), of merges
      (d) and (e), of group-bys (g), (h) and (j), of joins (k)-(n) and of
@@ -1745,8 +1748,8 @@ def groupby_few_plan(T, t):
     """Path (j): TPC-H Q1's shape, a DOUBLE SUM (with an f32 SUM and a
     COUNT(*)) into a few groups, under a fused Filter(v > 0.5) and by an
     INT64 key of huge values: the sort path (a DOUBLE input is past the
-    dense kernel), whose sorted order the compaction kernel cuts to the
-    kept rows, and whose runs are 780k rows each."""
+    dense kernel), which sorts only the kept rows, whose ids the
+    compaction kernel packs, and whose runs are 780k rows each."""
     A = T.Aggregation
     return T.GroupAggregate(
         ["k"], [T.AggSpec(A.SUM, "d", "sd"), T.AggSpec(A.SUM, "v", "sv"),
@@ -4088,6 +4091,106 @@ def parity_phase(torch, T, dev, smi, total, fact, fg):
             f"interrupted under FlipAfter(3), no file left, reruns exact")
 
 
+STAR_ROWS = 120_000_000       # path (an): SSB SF 20's lineorder capacity
+STAR_YEARS, STAR_BRANDS = 7, 1000  # path (an): d_year x p_brand1 (Q2.1)
+STAR_KEPT = 1_000_000         # path (an): sel below it keeps ~1M rows
+
+
+def star_groupby_table(T, dev):
+    """Path (an)'s fact, SSB Q2.1's group-by at SF 20: y INT32 1992-1998,
+    b STRING of 1000 brands, rev INT32 and sel INT32 uniform over the rows,
+    from default_rng(22).  Returns (table, host columns)."""
+    rng = np.random.default_rng(22)
+    n = STAR_ROWS
+    cols = {"y": rng.integers(1992, 1992 + STAR_YEARS, n).astype(np.int32),
+            "b": rng.integers(0, STAR_BRANDS, n).astype(np.int32),
+            "rev": rng.integers(0, 10**7, n).astype(np.int32),
+            "sel": rng.integers(0, n, n).astype(np.int32)}
+    words = tuple(f"MFGR#{i:04d}" for i in range(STAR_BRANDS))
+    schema = T.TupleSchema.of(("y", T.INT32, False), ("b", T.STRING, False),
+                              ("rev", T.INT32, False),
+                              ("sel", T.INT32, False))
+    return T.Table.from_numpy(schema, cols, None,
+                              {"b": T.Dictionary(words)}, device=dev), cols
+
+
+def star_groupby_plan(T, t, kept):
+    """Path (an): Sort(y, b) over GroupAggregate(y, b; SUM(rev) as INT64)
+    over a fused Filter(sel < kept): the star's sort-path group-by (7000
+    slots, past the dense domain) over a keep mask on 120M rows of
+    capacity, the Sort dropping the re-rank."""
+    agg = T.GroupAggregate(
+        ["y", "b"], [T.AggSpec(T.Aggregation.SUM, "rev", "s",
+                               output_type=T.INT64)],
+        T.Filter(T.col("sel") < T.Const(kept, T.INT32), T.ScanTable(t)),
+        T.GroupAggregateOptions(
+            estimated_result_row_count=STAR_YEARS * STAR_BRANDS))
+    return T.Sort([T.SortKey("y"), T.SortKey("b")], agg)
+
+
+def check_star_groupby(out, cols, kept):
+    """Path (an): the (y, b) groups of the kept rows in key order, each
+    INT64 sum exact.  Returns the group count."""
+    keep = cols["sel"] < kept
+    slot = ((cols["y"][keep] - 1992).astype(np.int64) * STAR_BRANDS
+            + cols["b"][keep])
+    slots = STAR_YEARS * STAR_BRANDS
+    counts = np.bincount(slot, minlength=slots)
+    # exact: every partial sum is an integer below 2^53
+    total = np.bincount(slot, weights=cols["rev"][keep],
+                        minlength=slots).astype(np.int64)
+    present = np.flatnonzero(counts)
+    n = int(out.num_rows)
+    assert n == present.shape[0], f"(an) kept {kept}: group count"
+    got = {c: out.columns[c].values[:n].cpu().numpy() for c in ("y", "b", "s")}
+    assert np.array_equal(got["y"], present // STAR_BRANDS + 1992), \
+        f"(an) kept {kept}: y"
+    assert np.array_equal(got["b"], present % STAR_BRANDS), \
+        f"(an) kept {kept}: b"
+    assert np.array_equal(got["s"], total[present]), f"(an) kept {kept}: sums"
+    return n
+
+
+def star_groupby_phase(torch, T, dev, smi):
+    """Path (an): the star's group-by shape at 120M rows of capacity, kept
+    by a mask that keeps ~1M rows, none, and every row: rows against
+    numpy, then the median of 5 of the GroupAggregate node's device-stream
+    ms (the CUDA events of its ``op.GroupAggregate.run`` span) and of the
+    query on the host clock.  Returns the summary."""
+    from supersonic_tpu_torch import tracing
+
+    t, cols = star_groupby_table(T, dev)
+    lines = []
+    for kept in (STAR_KEPT, 0, STAR_ROWS):
+        def plan():
+            return star_groupby_plan(T, t, kept)
+
+        groups = check_star_groupby(T.execute(plan()), cols, kept)
+        node, wall = [], []
+        for _ in range(REPEATS):
+            torch.cuda.synchronize()
+            tracing.clear()
+            tracing.start()
+            t0 = time.perf_counter()
+            T.execute(plan())
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            tracing.stop()
+            node += [s.device_ms for s in tracing.spans()
+                     if s.name == "op.GroupAggregate.run"]
+            tracing.clear()
+        lines.append(
+            f"(an) kept {int((cols['sel'] < kept).sum())} of {STAR_ROWS} "
+            f"rows -> {groups} groups, exact: GroupAggregate node median "
+            f"{statistics.median(node):.3f} ms (all: "
+            f"{', '.join(f'{x:.3f}' for x in node)}), query median "
+            f"{statistics.median(wall):.3f} ms; card: {smi}")
+        log(lines[-1])
+    del t
+    torch.cuda.empty_cache()
+    return "\n".join(lines)
+
+
 def main():
     import torch
 
@@ -4456,6 +4559,9 @@ def main():
     # (am): the card's route against the CPU route
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"))
     log(parity_phase(torch, T, dev, smi, total, fact, fg))
+
+    # (an): the star's sort-path group-by over a keep mask
+    log(star_groupby_phase(torch, T, dev, smi))
 
     # 5. times, host clock around execute (which ends in a sync)
     def median_ms(plan_fn, label, size):

@@ -13,9 +13,14 @@ Decision: tables stay CAPACITY-PADDED, as in the JAX package.  Every
 column has a static capacity (``values.shape[0]``); ``num_rows`` is a
 python int for tables built on the host, or a 0-d int64 tensor on the
 table's device for tables an operator produced, and says how many leading
-rows are live (``row_mask()``).  Operators therefore never wait for the
-device to learn a row count: a plan runs start to end without a host sync,
-and ``execute`` reads the error flags back in one sync at the end.  It also
+rows are live (``row_mask()``).  Operators therefore do not wait for the
+device to learn a row count, with one exception: the sort-path group-by
+reads its live row count once (sync ``agg.num_rows``, ops/aggregate.py),
+because a sort needs a length and eager PyTorch cannot give one without
+the host, and sorting the capacity instead costs far more than the read
+where a filter or a join keeps few rows.  Every other operator runs
+without a host sync, and ``execute`` reads the error flags back in one
+sync at the end.  It also
 keeps overflow behaviour the same as the reference: an operator whose
 result outgrows its planned capacity raises the same error flag
 (``"aggregate result overflow"``, ``"join result overflow"``).  Rows past
@@ -317,13 +322,17 @@ class Table:
 def gather_arrays(arrays: Sequence[torch.Tensor],
                   safe_indices: torch.Tensor) -> list:
     """Gather rows of several equal-length 1-D arrays at the same int32
-    indices (clipped into range), in one ``lut_gather`` launch on CUDA:
-    every lane, of any width, shares the index read."""
+    indices (clipped into range), in one ``lut_gather`` launch on CUDA a
+    group of up to ``MAX_ARRAYS`` lanes: every lane of a group, of any
+    width, shares the index read."""
+    from .kernels import MAX_ARRAYS
     from .kernels.lut_gather import lut_gather
 
-    if not arrays:
-        return []
-    return lut_gather(list(arrays), safe_indices, arrays[0].shape[0])
+    out: list = []
+    for i in range(0, len(arrays), MAX_ARRAYS):
+        out += lut_gather(list(arrays[i:i + MAX_ARRAYS]), safe_indices,
+                          arrays[0].shape[0])
+    return out
 
 
 def gather_table(table: Table, indices: torch.Tensor, num_rows) -> Table:

@@ -19,9 +19,16 @@ the consumer re-orders the rows anyway (Sort binds its child
     JAX package sends every SUM into an 8-byte output to its sort path,
     because the TPU has no 64-bit accumulators; the port takes those on
     the dense path (the rows are the same, the float sums within rounding).
-  * Sort path, every other group-by: a stable sort of the kept rows by
-    their group codes (ops/keys.py::group_code_columns) puts each group in
-    one run; runs begin where adjacent codes differ (so NULL equals NULL,
+  * Sort path, every other group-by: it first takes the live rows alone
+    (``_live_table``).  A host row count and no keep mask take a prefix;
+    otherwise the live count is read on the host, the one sync of the
+    path (``agg.num_rows``), since every later pass needs a length and
+    eager PyTorch gives none without the host, and a keep mask's live row
+    ids are compacted once and the columns gathered at them.  So a
+    group-by over a filter or a join that keeps a few of its capacity's
+    rows sorts those rows and no others.  A stable sort of the live rows
+    by their group codes (ops/keys.py::group_code_columns) puts each group
+    in one run; runs begin where adjacent codes differ (so NULL equals NULL,
     -0.0 equals +0.0, and each NaN key is a group of its own); the
     compaction kernel extracts each run's first and last sorted row.
     COUNTs and integer SUMs are diffs of cumsums at the run ends (int64
@@ -61,7 +68,7 @@ import numpy as np
 import torch
 
 from .. import tracing
-from ..batch import Column, Table, gather_arrays
+from ..batch import Column, Table, gather_arrays, gather_table
 from ..dictionary import DeferredDictionary
 from ..kernels import MAX_ARRAYS
 from ..kernels.compaction import compact_kernel
@@ -451,20 +458,12 @@ class DeferredConcat:
     aux: dict
 
 
-def _sorted_rows(operands, keep, num_rows, cap: int, dev):
-    """(input row at each sorted position, live row count): the live
-    rows, stably sorted by the operand tuple (most significant first), come
-    first; positions past the count hold row 0.  One stable ``torch.sort``
-    pass an operand, least significant first, floats by their total order
-    (NaNs last and tied, -0.0 tied with +0.0, as ``lax.sort`` orders them);
-    no operand keeps the input order.
-    Live rows are ``keep``'s; without one, the first ``num_rows``, and a
-    host row count sorts only those rows (the result is then that long).
-    Else the compaction kernel moves the live rows to the front, in sorted
-    order; its rows past the count are unspecified on the card, so they
-    are replaced by row 0 here, once for every reader."""
-    host_rows = keep is None and isinstance(num_rows, int)
-    n = num_rows if host_rows else cap
+def _sorted_rows(operands, n: int, dev):
+    """The input row at each sorted position of rows 0 to ``n`` - 1,
+    stably sorted by the operand tuple (most significant first).  One
+    stable ``torch.sort`` pass an operand, least significant first, floats
+    by their total order (NaNs last and tied, -0.0 tied with +0.0, as
+    ``lax.sort`` orders them); no operand keeps the input order."""
     perm = torch.arange(n, device=dev) if not operands else None
     for op in reversed(operands):
         key = sortable_words(op[:n])
@@ -472,12 +471,36 @@ def _sorted_rows(operands, keep, num_rows, cap: int, dev):
             perm = torch.sort(key, stable=True).indices
         else:
             perm = perm[torch.sort(key[perm], stable=True).indices]
-    if host_rows:
-        return perm, n
-    if keep is None:
-        keep = torch.arange(cap, device=dev) < num_rows
-    (perm,), count = compact_kernel([perm], keep[perm], cap)
-    return torch.where(torch.arange(cap, device=dev) < count, perm, 0), count
+    return perm
+
+
+def _live_table(t: Table, keep, names) -> Table:
+    """The columns ``names`` of ``t`` at its live rows alone, in input
+    order: a table whose rows are all live and whose row count is a host
+    int.  The live rows are ``keep``'s, or without one the first
+    ``num_rows``.  A host row count takes a prefix of each lane, with no
+    sync.  Any other count is read on the host once (sync
+    ``agg.num_rows``): the sort path's passes need a length, and eager
+    PyTorch gives none without the host.  A device count then takes a
+    prefix too; under ``keep`` the compaction kernel packs the live row ids
+    (one stable pass over the capacity), and one gather reads the columns
+    at them.  So every later pass runs over the live rows only."""
+    names = list(dict.fromkeys(names))
+    cols = {n: t.columns[n] for n in names}
+    schema = TupleSchema([t.schema.lookup(n) for n in names])
+    cap, n, dev = t.capacity, t.num_rows, t.device
+    if keep is not None:
+        (ids,), count = compact_kernel(
+            [torch.arange(cap, dtype=torch.int32, device=dev)], keep, cap)
+        n = tracing.count_to_host(count, "agg.num_rows", cap)
+        if n:
+            return gather_table(Table(schema, cols, n, dev, t.dicts),
+                                ids[:n], n)
+    elif not isinstance(n, int):
+        n = tracing.count_to_host(n, "agg.num_rows", cap)
+    cols = {name: Column(c.values[:n], None if c.valid is None
+                         else c.valid[:n]) for name, c in cols.items()}
+    return Table(schema, cols, n, dev, t.dicts, cap_hint=n)
 
 
 def _extract(lanes: dict, mask: torch.Tensor, out_cap: int) -> dict:
@@ -585,8 +608,9 @@ def _grouped_aggregate(t: Table, names, specs, schema_in, out_dicts,
     """Sort-path group-by (``_grouped_aggregate`` of the JAX package, whose
     semantics it keeps; the module docstring has the design).  ``keep``
     (a fused Filter or a masked join) marks the live rows; without it, the
-    first ``num_rows``.  Groups come out in first-occurrence order, or in
-    key order without ``rerank``.
+    first ``num_rows``.  Every pass after ``_live_table`` runs over the
+    live rows alone.  Groups come out in first-occurrence order, or in key
+    order without ``rerank``.
 
     ``pre_sorted`` (AggregateClusters): runs are adjacent equal keys in
     input order, so equal keys that are not adjacent stay groups of their
@@ -598,33 +622,32 @@ def _grouped_aggregate(t: Table, names, specs, schema_in, out_dicts,
     is a group of its own, with a warning flag."""
     dev = t.device
     cap = t.capacity
+    t = _live_table(t, keep, list(names) + [s.input for s in specs
+                                            if s.input is not None])
+    L = t.num_rows  # every row of t is live, in input order
     codes = []
     for nr, c in group_code_columns(t, names):
         codes += [c] if nr is None else [nr, c]
-    perm, live_count = _sorted_rows([] if pre_sorted else codes, keep,
-                                    t.num_rows, cap, dev)
-    L = perm.shape[0]
+    perm = _sorted_rows([] if pre_sorted else codes, L, dev)
     pos = torch.arange(L, device=dev)
-    live_s = pos < live_count
     # a run starts where any code differs from the row before (NaN != NaN)
-    differs = pos == 0
+    boundary = pos == 0
     if L > 1 and codes:
         same = None
         for c in codes:
             cs = c[perm]
             eq = cs[1:] == cs[:-1]
             same = eq if same is None else (same & eq)
-        differs[1:] = ~same
-    boundary = live_s & differs
+        boundary[1:] = ~same
     if soft_key_limit is not None:
         rctx.error_flags.append(
             ("warning: best-effort group-by exceeded memory_quota; result "
              "is partially aggregated", boundary.sum() > soft_key_limit))
         rank = torch.cumsum(boundary, 0) - 1
-        boundary = live_s & (boundary | (rank >= soft_key_limit))
+        boundary = boundary | (rank >= soft_key_limit)
     next_starts = torch.zeros_like(boundary)
     next_starts[:-1] = boundary[1:]
-    is_end = live_s & (next_starts | (pos == live_count - 1))
+    is_end = next_starts | (pos == L - 1)
     num_groups = boundary.sum()
     if max_keys is None and soft_key_limit is None:
         rctx.error_flags.append(("aggregate result overflow",
@@ -667,25 +690,24 @@ def _grouped_aggregate(t: Table, names, specs, schema_in, out_dicts,
             if pre_sorted:
                 # the run id of each row (the base order is the input's)
                 group = [torch.cumsum(boundary, 0, dtype=torch.int32)]
-                vperms[pkey] = _sorted_rows(group + vrank + [vcode], keep,
-                                            t.num_rows, cap, dev)[0]
+                vperms[pkey] = _sorted_rows(group + vrank + [vcode], L, dev)
             else:
-                vperms[pkey] = _sorted_rows(codes + vrank + [vcode], keep,
-                                            t.num_rows, cap, dev)[0]
+                vperms[pkey] = _sorted_rows(codes + vrank + [vcode], L, dev)
         return vperms[pkey]
 
     dweights: dict = {}
 
     def distinct_weight(name):
         """(values, weight) per value-ordered position of a DISTINCT SUM
-        or COUNT of ``name``: a row weighs 1 if it is live, not NULL, and
-        its value code differs from the previous row's in the same run
-        (NaN is never equal to NaN)."""
+        or COUNT of ``name``: a row weighs 1 if it is not NULL and its
+        value code differs from the previous row's in the same run (NaN is
+        never equal to NaN)."""
         if name not in dweights:
             pv = value_pass((name, "asc"))
             c = t.columns[name]
             vs = c.values[pv]
-            ok = live_s if c.valid is None else (c.valid[pv] & live_s)
+            ok = (torch.ones(L, dtype=torch.bool, device=dev)
+                  if c.valid is None else c.valid[pv])
             code = monotone_code(vs, schema_in.lookup(name).type)
             dup = torch.zeros_like(ok)
             dup[1:] = ((~boundary[1:]) & (code[1:] == code[:-1])
@@ -703,7 +725,8 @@ def _grouped_aggregate(t: Table, names, specs, schema_in, out_dicts,
             # rides the stable base pass: a group's rows in input order,
             # the reference's append order
             vals, valid = sorted_col(s.input)
-            ok = live_s if valid is None else (valid & live_s)
+            ok = (torch.ones(L, dtype=torch.bool, device=dev)
+                  if valid is None else valid)
             key = ("concat", s.output)
             ends[key] = torch.cumsum(ok, 0, dtype=torch.int32)
             concat_out[s.output] = key
@@ -757,10 +780,9 @@ def _grouped_aggregate(t: Table, names, specs, schema_in, out_dicts,
     present = torch.arange(ext_cap, device=dev) < num_groups
 
     def diff(x):
-        """Per group, from a cumsum read at the run ends."""
-        x = torch.where(present, x, 0)
-        prev = torch.cat([x.new_zeros(1), x[:-1]])
-        return torch.where(present, x - prev, 0)
+        """Per group, from a cumsum read at the run ends (rows past the
+        groups hold junk, which only rows past the groups read)."""
+        return torch.where(present, torch.diff(x, prepend=x.new_zeros(1)), 0)
 
     count_all = diff(e["pos"] + 1)  # the run lengths
 
@@ -771,19 +793,22 @@ def _grouped_aggregate(t: Table, names, specs, schema_in, out_dicts,
     def rows(lane):
         return torch.where(present, lane, 0).to(torch.int32)
 
-    start_row, end_row = rows(st["row"]), rows(e["row"])
+    start_row = rows(st["row"])
 
-    def at(idx, name):
-        """(values, validity) of an input column at int32 rows."""
-        c = t.columns[name]
-        if c.valid is None:
-            return gather_arrays([c.values], idx)[0], None
-        return tuple(gather_arrays([c.values, c.valid], idx))
+    def at(idx, cols_at):
+        """[(values, validity)] of the input columns ``cols_at`` at int32
+        rows, in one gather (zeros where no row is live: no group reads
+        them)."""
+        lanes = []
+        for name in cols_at:
+            c = t.columns[name]
+            lanes += [c.values] if c.valid is None else [c.values, c.valid]
+        got = iter(gather_arrays(lanes, idx) if L else
+                   [x.new_zeros(idx.shape) for x in lanes])
+        return [(next(got), None if t.columns[name].valid is None
+                 else next(got)) for name in cols_at]
 
-    cols: dict[str, Column] = {}
-    for n in names:
-        vals, valid = at(start_row, n)
-        cols[n] = Column(vals, valid)
+    cols = {n: Column(*vv) for n, vv in zip(names, at(start_row, names))}
     for s in specs:
         odt = torch_dtype(_resolve_output_attr(s, schema_in).type)
         agg = s.aggregation
@@ -815,17 +840,18 @@ def _grouped_aggregate(t: Table, names, specs, schema_in, out_dicts,
             # last: NULL only where the group holds no value (and, as in
             # the JAX package, the k-th NaN-key group takes the k-th NaN-key
             # row of that order)
-            vals, valid = at(rows(st[_pass_key(s)]), s.input)
+            (vals, valid), = at(rows(st[_pass_key(s)]), [s.input])
             cols[s.output] = Column(vals.to(odt), present if valid is None
                                     else (present & valid))
         else:  # FIRST / LAST: the run's first / last row in input order
-            vals, valid = at(start_row if agg == Aggregation.FIRST
-                             else end_row, s.input)
+            (vals, valid), = at(start_row if agg == Aggregation.FIRST
+                                else rows(e["row"]), [s.input])
             cols[s.output] = Column(vals.to(odt), present if valid is None
                                     else (present & valid))
 
     if rerank:
-        # insertion order: present groups by first-occurrence row
+        # insertion order: present groups by first-occurrence row, absent
+        # slots after them (every row of t lies below L)
         first = torch.where(present, st["row"],
                             L + torch.arange(ext_cap, device=dev))
         order = torch.sort(first).indices
@@ -1485,7 +1511,7 @@ def _scalar_distinct(vals, valid, type_, cap: int, all_valid: bool):
     NULL) drops the NULL rank from the sort."""
     code = monotone_code(vals, type_)
     ops = [code] if all_valid else [(~valid).to(torch.int32), code]
-    perm, _ = _sorted_rows(ops, None, cap, cap, vals.device)
+    perm = _sorted_rows(ops, cap, vals.device)
     sv, ok = vals[perm], valid[perm]
     sc = sv if code is vals else code[perm]
     dup = torch.zeros_like(ok)

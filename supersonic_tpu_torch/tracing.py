@@ -39,7 +39,7 @@ import torch
 
 __all__ = ["Span", "MAX_SPANS", "launches", "reset_launches", "active",
            "start", "stop", "clear", "spans", "current", "span", "node",
-           "sync", "to_host", "traced_bind"]
+           "sync", "to_host", "count_to_host", "traced_bind"]
 
 # a 20 s window of the benchmark's shortest queries makes about 50 spans a
 # query over ~1,230 queries
@@ -163,7 +163,8 @@ _NULL = _Null()
 
 
 class _Open:
-    """Opens a span on entry and closes it on exit."""
+    """Opens a span on entry, giving its attribute dict (None where the
+    span list is full), and closes it on exit."""
 
     __slots__ = ("name", "attrs", "owner", "cuda", "new_query", "index")
 
@@ -196,7 +197,7 @@ class _Open:
             self.index = len(_spans)
             _spans.append(rec)
         stack.append(self.index)
-        return None
+        return self.attrs
 
     def __exit__(self, *exc):
         i = self.index
@@ -250,14 +251,16 @@ def node(bound, ctx):
                  {"name": bound.name, "route": bound.route}, bound, cuda)
 
 
-def sync(site: str, t):
+def sync(site: str, t, **attrs):
     """The span of a host sync at ``site`` that reads tensor ``t``: one
     device-to-host transfer where ``t`` is on CUDA, none elsewhere (a copy
-    from the host, a CPU tensor)."""
+    from the host, a CPU tensor), beside ``attrs``.  Entered, it gives the
+    span's attribute dict (None where no span is recorded), which the
+    caller may add to until the span closes."""
     if not (_forced or _profiler_enabled()):
         return _NULL
     cuda = isinstance(t, torch.Tensor) and t.is_cuda
-    return _Open(f"sync.{site}", {"transfers": int(cuda)})
+    return _Open(f"sync.{site}", {"transfers": int(cuda), **attrs})
 
 
 def to_host(t, site: str):
@@ -267,6 +270,17 @@ def to_host(t, site: str):
         return t
     with sync(site, t):
         return t.cpu()
+
+
+def count_to_host(count: torch.Tensor, site: str, capacity: int) -> int:
+    """A 0-d row count of a lane of ``capacity`` rows as a host int, read
+    inside the span of sync ``site``, which also records the count read
+    (``rows``) and ``capacity``."""
+    with sync(site, count, capacity=capacity) as attrs:
+        rows = int(count.cpu())
+        if attrs is not None:
+            attrs["rows"] = rows
+    return rows
 
 
 def traced_bind(bind):

@@ -10,6 +10,7 @@ plans are shaped so that the JAX package also takes its sort path (its
 dense path runs the segment-reduce kernel in interpret mode, seconds a
 call)."""
 import math
+import warnings
 
 import numpy as np
 import pytest
@@ -20,7 +21,7 @@ import supersonic_tpu.ops.aggregate as JA
 import supersonic_tpu_torch as T
 import supersonic_tpu_torch.ops.aggregate as TA
 
-from torch_parity import schema, tables
+from torch_parity import bit_rows, schema, tables
 
 torch.set_num_threads(1)
 
@@ -794,6 +795,31 @@ def test_more_lanes_than_one_compaction_launch_match_jax():
     assert_rows_match(got, want, 1)
 
 
+def test_more_lanes_than_one_gather_launch_under_a_filter_match_jax():
+    """17 nullable INT64 inputs and a nullable key under a fused Filter:
+    36 lanes read at the live row ids, past the 32 one gather launch
+    moves, so they are gathered in two launches."""
+    rng = np.random.default_rng(38)
+    n, m = 1000, 17
+    cols = (("k", "INT32", True),) + tuple(
+        (f"x{j}", "INT64", True) for j in range(m))
+    data = {"k": (rng.integers(0, 60, n).astype(np.int32),
+                  rng.random(n) > 0.1)}
+    for j in range(m):
+        data[f"x{j}"] = (rng.integers(-2**40, 2**40, n), rng.random(n) > 0.3)
+    jt, tt = tables(J, T, cols, data)
+
+    def plan(ns, t):
+        A = ns.Aggregation
+        specs = [ns.AggSpec(A.MAX, f"x{j}", f"m{j}") for j in range(m)]
+        return ns.GroupAggregate(["k"], specs, ns.Filter(
+            ns.col("k") > ns.Const(5, ns.DataType.INT32), ns.ScanTable(t)))
+
+    got, want = _run(plan, jt, tt)
+    assert 40 < int(got.num_rows) < 60
+    assert_rows_match(got, want, 1)
+
+
 def _dirty_compaction(monkeypatch):
     """Make the aggregate's compactions leave junk past the count, as the
     card's kernel may (its rows there are unspecified; the CPU version
@@ -882,3 +908,120 @@ def test_run_sums_spread_long_runs_over_tiles():
             assert abs(got[j] - want) <= F64_TOL * max(
                 1.0, math.fsum(np.abs(run))), (j, got[j], want)
     assert got[2] == math.inf and got[1] == got[6] == got[9] == 0.0
+
+
+LIVE_ROWS, LIVE_DIM = 3000, 300
+LIVE_COLS = (("r", "INT32", False), ("fk", "INT32", False),
+             ("k", "INT64", True), ("v", "INT64", True),
+             ("d", "DOUBLE", True), ("i", "INT32", True))
+
+
+def _live_data():
+    """The fact's columns: r is the row number, fk hits the dimension for
+    about half the rows, k is a nullable INT64 key of 40 values far above
+    the row count (so no planned domain)."""
+    rng = np.random.default_rng(37)
+    n = LIVE_ROWS
+    return {"r": np.arange(n, dtype=np.int32),
+            "fk": rng.integers(0, 2 * LIVE_DIM, n).astype(np.int32),
+            "k": (rng.integers(0, 40, n) * 10**12 + 7, rng.random(n) > 0.05),
+            "v": (rng.integers(-10**6, 10**6, n), rng.random(n) > 0.1),
+            "d": (rng.standard_normal(n) * 1e6, rng.random(n) > 0.1),
+            "i": (rng.integers(0, 50, n).astype(np.int32),
+                  rng.random(n) > 0.1)}
+
+
+def _live_child(ns, form, t, dim):
+    """The group-by's input in each form the live rows come in: ``host``
+    a table built on the host (a host row count), ``join`` a masked UNIQUE
+    join (a keep mask), ``count`` a Compute over that join, which then
+    compacts (a device count, Q4's shape), and a fused Filter keeping
+    ``none``, ``all`` or only the ``high`` rows."""
+    col = ns.col
+    names = [c[0] for c in LIVE_COLS if c[0] != "fk"]
+    if form == "host":
+        return ns.ScanTable(t)
+    if form in ("join", "count"):
+        join = ns.HashJoin(ns.JoinType.INNER, ["fk"], ["pk"], ns.ScanTable(t),
+                           ns.ScanTable(dim), ns.KeyUniqueness.UNIQUE,
+                           lhs_projector=ns.Projector.named(*names),
+                           rhs_projector=ns.Projector.named("w"))
+        return (join if form == "join"
+                else ns.Compute([col(n) for n in names], join))
+    edge = {"none": LIVE_ROWS, "all": 0, "high": LIVE_ROWS - 40}[form]
+    return ns.Filter(col("r") >= ns.Const(edge, ns.DataType.INT32),
+                     ns.ScanTable(t))
+
+
+def _live_live(form, data):
+    r, fk = data["r"], data["fk"]
+    return {"host": r >= 0, "join": fk < LIVE_DIM, "count": fk < LIVE_DIM,
+            "none": r < 0, "all": r >= 0, "high": r >= LIVE_ROWS - 40}[form]
+
+
+def _live_plan(ns, mode, child):
+    """Every aggregate kind the mode takes over ``child``, grouped by k:
+    ``plain`` in insertion order with room for more groups than there are
+    (absent slots after the re-rank), ``clamp`` under
+    max_unique_keys_in_result, ``quota`` under a best-effort memory quota
+    (no DISTINCT), ``clusters`` as AggregateClusters."""
+    A = ns.Aggregation
+    I64 = ns.DataType.INT64
+    specs = [ns.AggSpec(A.SUM, "v", "sv", output_type=I64),
+             ns.AggSpec(A.SUM, "d", "sd"), ns.AggSpec(A.COUNT, None, "c"),
+             ns.AggSpec(A.COUNT, "d", "cd"), ns.AggSpec(A.MIN, "d", "mn"),
+             ns.AggSpec(A.MAX, "v", "mx"),
+             ns.AggSpec(A.SUM, "i", "dsi", output_type=I64, distinct=True),
+             ns.AggSpec(A.CONCAT, "i", "ci"), ns.AggSpec(A.FIRST, "d", "fd"),
+             ns.AggSpec(A.LAST, "i", "li")]
+    if mode == "clamp":
+        specs = [s for s in specs if s.aggregation != A.CONCAT]
+    if mode == "quota":
+        specs = [s for s in specs if not s.distinct]
+    if mode == "clusters":
+        return ns.AggregateClusters(["k"], specs, child)
+    if mode == "quota":
+        return ns.BestEffortGroupAggregate(
+            ["k"], specs, child, ns.GroupAggregateOptions(memory_quota=600))
+    opts = (ns.GroupAggregateOptions(estimated_result_row_count=120)
+            if mode == "plain"
+            else ns.GroupAggregateOptions(max_unique_keys_in_result=7))
+    agg = ns.GroupAggregate(["k"], specs, child, opts)
+    agg._pushdown_disabled = True
+    return agg
+
+
+@pytest.mark.parametrize("form,mode", [
+    ("join", "plain"), ("count", "plain"), ("host", "plain"),
+    ("none", "plain"), ("all", "plain"), ("high", "plain"),
+    ("join", "clamp"), ("high", "clamp"), ("join", "quota"),
+    ("count", "quota"), ("count", "clusters"), ("high", "clusters"),
+    ("host", "clusters")])
+def test_sort_path_over_live_rows_matches_jax(form, mode):
+    """The sort path sorts and scans the live rows alone, however they
+    come: the rows match the JAX package's, DOUBLE sums within the suite's
+    tolerance, and they equal bit for bit the port's rows over a table
+    built on the host of those live rows alone, in input order."""
+    data = _live_data()
+    jt, tt = tables(J, T, LIVE_COLS, data)
+    dim = {"pk": np.arange(LIVE_DIM, dtype=np.int32),
+           "w": np.arange(LIVE_DIM, dtype=np.int32)}
+    dcols = (("pk", "INT32", False), ("w", "INT32", False))
+    jd, td = tables(J, T, dcols, dim)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        got = T.execute(_live_plan(T, mode, _live_child(T, form, tt, td)))
+        want = J.execute(_live_plan(J, mode, _live_child(J, form, jt, jd)))
+        live = _live_live(form, data)
+        kept = {name: (tuple(x[live] for x in a) if isinstance(a, tuple)
+                       else a[live]) for name, a in data.items()}
+        host = T.execute(_live_plan(T, mode, T.ScanTable(
+            tables(J, T, LIVE_COLS, kept)[1])))
+    k, d = data["k"], data["d"]
+    # a clamp folds groups and a quota splits them: there, within the
+    # tolerance of the JAX package's value
+    exact = {"sd": (F64_TOL, group_sums([k], d[0], d[1], live)
+                    if mode == "plain" else {})}
+    assert_rows_match(got, want, 1, exact)
+    assert bit_rows(got.to_pylist()) == bit_rows(host.to_pylist())
+    assert int(got.num_rows) == (0 if form == "none" else int(host.num_rows))

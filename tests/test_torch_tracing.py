@@ -33,6 +33,11 @@ SPARSE = T.Table.from_data(T.TupleSchema.of(
     ("sk", T.INT32, False), ("h", T.INT32, False)), {
     "sk": np.arange(0, 120, 3, dtype=np.int32)[::-1].copy(),
     "h": RNG.integers(0, 5, 40, dtype=np.int32)}, device="cpu")
+LINES_Q = RNG.random(3000)
+LINES = T.Table.from_data(T.TupleSchema.of(
+    ("g", T.INT32, False), ("q", T.DOUBLE, False)), {
+    "g": RNG.integers(0, 4, 3000, dtype=np.int32), "q": LINES_Q},
+    device="cpu")
 
 
 def star():
@@ -65,12 +70,7 @@ def q1():
     c, one = T.col, T.Const(1.0, T.DOUBLE)
     rows = T.Compute([c("g"), (c("q") * (one - c("q"))).as_("d")],
                      T.Filter(c("q") <= T.Const(0.9, T.DOUBLE),
-                              T.ScanTable(T.Table.from_data(
-                                  T.TupleSchema.of(("g", T.INT32, False),
-                                                   ("q", T.DOUBLE, False)),
-                                  {"g": RNG.integers(0, 4, 3000,
-                                                     dtype=np.int32),
-                                   "q": RNG.random(3000)}, device="cpu"))))
+                              T.ScanTable(LINES)))
     agg = T.GroupAggregate(
         ["g"], [T.AggSpec(T.Aggregation.SUM, "d", "sd"),
                 T.AggSpec(T.Aggregation.COUNT, None, "n",
@@ -222,15 +222,74 @@ def test_syncs_are_named_and_transfer_nothing_on_the_cpu(recorded):
     tracing.start()
     cols = run_query(q1()[0])
     tracing.stop()
-    syncs = [s for s in tracing.spans() if s.name.startswith("sync.")]
+    spans = tracing.spans()
+    syncs = [s for s in spans if s.name.startswith("sync.")]
     names = [s.name for s in syncs]
-    # avg = sd / n is nullable: its validity is copied too
-    assert names == (["sync.flags", "sync.copy.num_rows"]
+    # g loses its statistics in the Compute, so the group-by takes the sort
+    # path over the Filter's device count and reads it once; avg = sd / n
+    # is nullable: its validity is copied too
+    assert names == (["sync.agg.num_rows", "sync.flags", "sync.copy.num_rows"]
                      + ["sync.copy.values"] * len(cols) + ["sync.copy.valid"])
-    assert all(s.attrs == {"transfers": 0} for s in syncs)
-    assert all(tracing.spans()[s.parent].name in ("query.finish",
-                                                  "query.copy")
-               for s in syncs)
+    assert syncs[0].attrs == {"transfers": 0, "capacity": 3000,
+                              "rows": int((LINES_Q <= 0.9).sum())}
+    assert all(s.attrs == {"transfers": 0} for s in syncs[1:])
+    assert spans[syncs[0].parent].name == "op.GroupAggregate.run"
+    assert all(spans[s.parent].name in ("query.finish", "query.copy")
+               for s in syncs[1:])
+
+
+def _agg_reads(plan):
+    """The ``sync.agg.num_rows`` spans of one query of ``plan``, each with
+    its parent span's name."""
+    tracing.start()
+    run_query(plan)
+    tracing.stop()
+    spans = tracing.spans()
+    return [(s.attrs, spans[s.parent].name) for s in spans
+            if s.name == "sync.agg.num_rows"]
+
+
+@pytest.mark.parametrize("child", ["keep_filter", "keep_join", "count"])
+def test_a_sort_path_group_by_reads_its_live_rows_once(recorded, child):
+    """Over a keep mask (a fused Filter, a masked UNIQUE join) or a device
+    row count (a Compute over a Filter), a sort-path group-by with a base
+    pass, a MIN pass and a DISTINCT pass reads its live count once, inside
+    its own run."""
+    A, c = T.Aggregation, T.col
+    fact = T.ScanTable(FACT)
+    keep = FACT.to_numpy()["v"] > 300
+    if child == "keep_join":
+        # the dimension keeps its rows of g < 5 (pk = row), probed by fk
+        dim = T.Filter(c("g") < T.Const(5, T.INT32), T.ScanTable(DIM))
+        node = T.HashJoin(T.JoinType.INNER, ["fk"], ["pk"], fact, dim,
+                          T.KeyUniqueness.UNIQUE,
+                          lhs_projector=T.Projector.named("q", "v"),
+                          rhs_projector=T.Projector.named("g"))
+        keep = DIM.to_numpy()["g"][FACT.to_numpy()["fk"]] < 5
+    else:
+        node = T.Filter(c("v") > T.Const(300, T.INT64), fact)
+        if child == "count":
+            node = T.Compute([c("q"), c("v")], node)
+    plan = T.GroupAggregate(
+        ["q"], [T.AggSpec(A.SUM, "v", "s", output_type=T.INT64),
+                T.AggSpec(A.MIN, "v", "mn"),
+                T.AggSpec(A.SUM, "v", "ds", output_type=T.INT64,
+                          distinct=True)], node)
+    plan._pushdown_disabled = True
+    assert _agg_reads(plan) == [({"transfers": 0, "capacity": 4000,
+                                  "rows": int(keep.sum())},
+                                 "op.GroupAggregate.run")]
+
+
+def test_a_group_by_over_host_rows_reads_nothing(recorded):
+    """A sort-path group-by over a table built on the host (its row count
+    a host int, no keep mask) opens no ``sync.agg.num_rows`` span."""
+    A = T.Aggregation
+    plan = T.GroupAggregate(["q"], [T.AggSpec(A.MIN, "v", "mn"),
+                                    T.AggSpec(A.COUNT, "v", "dc",
+                                              distinct=True)],
+                            T.ScanTable(FACT))
+    assert _agg_reads(plan) == []
 
 
 def test_a_subclass_bind_calling_its_parents_opens_one_span(recorded):
