@@ -59,9 +59,7 @@ take the merge probe, STRING keys and the outer join types:
      sort path over the kept rows' compacted ids, twice, bit for bit); (h)
      bench_ops.py:234-238's "groupby_str
      8M->50" at 100M rows (dense by the dictionary, one segment-reduce
-     launch); (i) the headline through the aggregate pushdown binding,
-     under its Sort and in insertion order, row for row against the
-     direct binding; then four more joins: (k) bench_ops.py:153-160's
+     launch); then four more joins: (k) bench_ops.py:153-160's
      "join 8M x 1M (merge probe)" over the headline tables, 100M rows;
      (l) the dup8 (a) join over INT64 keys spread past every dense budget
      (the merge probe, 100M rows); (m) bench_ops.py:260-278's "join_str
@@ -1824,41 +1822,6 @@ def check_groupby_str(out, codes, v):
     np.testing.assert_allclose([r[1] for r in rows], sums[order],
                                rtol=SUM_RTOL)
     return len(rows)
-
-
-def pushdown_plans(T, fact_t, dim_t):
-    """Path (i): the headline plan, and its aggregate alone (insertion
-    order), each (pushdown binding, direct binding): the aggregate's
-    ``_pushdown_disabled`` set either way."""
-    plans = []
-    for sort in (True, False):
-        pair = []
-        for disabled in (False, True):
-            p = headline_plan(T, fact_t, dim_t)
-            agg = p.child
-            agg._pushdown_disabled = disabled
-            pair.append(p if sort else agg)
-        plans.append(pair)
-    return plans
-
-
-def check_pushdown(out, direct, ordered):
-    """Path (i): the pushdown binding's rows equal the direct binding's:
-    keys and counts exact, sums within rtol 1e-4; in order without the
-    Sort, by key under it (sums that differ in their last bits may swap
-    two near-equal groups there)."""
-    got, want = out.to_pylist(), direct.to_pylist()
-    assert [a.name for a in out.schema] == [a.name for a in direct.schema]
-    assert [a.type for a in out.schema] == [a.type for a in direct.schema]
-    if not ordered:
-        got, want = sorted(got), sorted(want)
-        svs = [r[1] for r in out.to_pylist()]
-        assert all(a >= b for a, b in zip(svs, svs[1:])), "(i): sv order"
-    assert [(r[0], r[2]) for r in got] == [(r[0], r[2]) for r in want], \
-        "(i): keys, counts or their order"
-    np.testing.assert_allclose([r[1] for r in got], [r[1] for r in want],
-                               rtol=SUM_RTOL)
-    return len(got)
 
 
 # --- joins (k)-(n): the merge probe, sparse 64-bit and STRING keys, and the
@@ -4390,20 +4353,11 @@ def main():
     n_h = check_groupby_str(out, codes, fact["v"])
     concat_codes = codes[:CONCAT_ROWS].copy()  # the CONCAT path's words
     del out, codes
-    n_i = []
-    for ordered, (pushed, direct) in zip(
-            (False, True), pushdown_plans(T, fact_t, dim_t)):
-        label = ("(i) headline aggregate, pushdown binding" if ordered
-                 else "(i) headline query, pushdown binding")
-        out = drive(label, pushed, ("compaction", "lut_gather"))
-        n_i.append(check_pushdown(out, T.execute(direct), ordered))
-        del out
     log(f"group-bys match numpy: (g) {n_g} groups in first-occurrence "
         f"order, counts exact, sv rtol {SUM_RTOL}, sd within "
         f"{DOUBLE_RTOL} of its sum of |d|, mx bit for bit, a second run "
         f"bit for bit; (h) {n_h} words in order, counts exact, sv rtol "
-        f"{SUM_RTOL}; (i) the pushdown binding's {n_i[0]} sorted and "
-        f"{n_i[1]} ordered rows equal the direct binding's; (j) {n_j} keys "
+        f"{SUM_RTOL}; (j) {n_j} keys "
         f"in first-occurrence order, counts exact, sd within {DOUBLE_RTOL} "
         f"of its sum of |d|, sv rtol {SUM_RTOL}, a second run bit for bit")
 
@@ -4642,12 +4596,6 @@ def main():
         T.set_local_timezone(LOCAL_ZONE if "Local" in label else None)
         median_ms(plan_fn, label, size)
     T.set_local_timezone(None)
-    for i, label in enumerate(("(i) headline query", "(i) headline aggregate "
-                               "in insertion order")):
-        for j, binding in enumerate(("pushdown", "direct")):
-            median_ms(lambda: pushdown_plans(T, fact_t, dim_t)[i][j],
-                      f"{label}, {binding} binding",
-                      f"{FACT_ROWS} x {DIM_ROWS}")
 
     meta = {
         "compaction": ("supersonic_tpu_torch/csrc/compaction.cu",

@@ -10,10 +10,9 @@ join into 100M rows; ``merge`` builds chip_smoke.py's two sorted 50M-row
 runs and profiles merge (d), the MergeUnionAll of bench_ops.py:281-299 into
 100M rows; ``e`` builds chip_smoke.py's four sorted 25M-row runs and
 profiles merge (e), their 4-way MergeUnionAll by (k INT64 nullable ASC, d
-DOUBLE DESC) into 100M rows; ``pushdown`` profiles the headline plan
-through the aggregate pushdown binding (chip_smoke.py's path (i), under
-its Sort); ``groupby_hi`` profiles chip_smoke.py's path (g), the
-sort-path group-by of the headline's 100M fact rows into 1M keys;
+DOUBLE DESC) into 100M rows; ``groupby_hi`` profiles chip_smoke.py's
+path (g), the sort-path group-by of the headline's 100M fact rows into 1M
+keys;
 ``groupby_few`` profiles its path (j), a DOUBLE SUM of those rows into 64
 INT64 keys under a fused Filter; ``merge_probe`` its path (k), the
 headline tables' INNER UNIQUE join through the merge probe; ``sparse64``
@@ -52,8 +51,8 @@ device memory above the inputs, and the table of ops and kernels by device
 time.
 
     python3 scripts/profile_torch_headline.py \
-        [headline|dup8|merge|e|pushdown|groupby_hi|groupby_few|merge_probe|
-         sparse64|join_str|right_outer|full_outer|q6|scalar_distinct|
+        [headline|dup8|merge|e|groupby_hi|groupby_few|merge_probe|sparse64|
+         join_str|right_outer|full_outer|q6|scalar_distinct|
          distinct|clusters_merge|clusters_raw|clamp|best_effort|topn|limit|
          rowid|foreign|concat|u_math|u_round|v_q14|w_q12|x_utc|x_local|
          y_stateful|z_hash|z_groupby|z_sort|z_render|aa_save|aa_load|
@@ -209,8 +208,8 @@ SLICE = ("q6", "scalar_distinct", "distinct", "clusters_merge",
 
 def earlier_plan(which, dev):
     """The plan function of a path of the headline to (n) (chip_smoke.py)."""
-    if which in ("headline", "pushdown", "groupby_hi", "groupby_few",
-                 "merge_probe", "join_str"):
+    if which in ("headline", "groupby_hi", "groupby_few", "merge_probe",
+                 "join_str"):
         fact, dim = chip_smoke.make_data()
         fs, ds = chip_smoke.schemas(T)
     elif which in ("dup8", "sparse64", "right_outer", "full_outer"):
@@ -230,8 +229,8 @@ def earlier_plan(which, dev):
         torch.cuda.empty_cache()
     else:
         sys.exit(f"profile_torch_headline: unknown plan {which!r}")
-    if which in ("headline", "dup8", "pushdown", "merge_probe",
-                 "right_outer", "full_outer"):
+    if which in ("headline", "dup8", "merge_probe", "right_outer",
+                 "full_outer"):
         fact_t = T.Table.from_numpy(fs, fact, device=dev)
         dim_t = T.Table.from_numpy(ds, dim, device=dev)
     if which == "sparse64":
@@ -251,8 +250,6 @@ def earlier_plan(which, dev):
             return chip_smoke.merge_plan(T, runs)
         if which == "e":
             return chip_smoke.merge4_plan(T, runs)
-        if which == "pushdown":
-            return chip_smoke.pushdown_plans(T, fact_t, dim_t)[0][0]
         if which == "groupby_hi":
             return chip_smoke.groupby_hi_plan(T, hi_t)
         if which == "groupby_few":

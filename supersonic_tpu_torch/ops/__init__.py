@@ -1,10 +1,10 @@
 """Operator surface of the port: scan, filter, project, compute, limit,
 generate, coalesce, hash joins of every JoinType over keys of every carried
 column type with UNIQUE or NOT_UNIQUE rhs, the row-id joins, group-by
-(dense, sort path, the aggregate pushdown, DISTINCT, key clamps, memory
-quotas, CONCAT), the best-effort, hybrid (spilling under a quota), scalar
-and cluster aggregates, sort (in memory, extended, and spilling under a
-memory limit), MergeUnionAll, UnionAll, plan sharing and spies.
+(dense, sort path, DISTINCT, key clamps, memory quotas, CONCAT), the
+best-effort, hybrid (spilling under a quota), scalar and cluster
+aggregates, sort (in memory, extended, and spilling under a memory limit),
+MergeUnionAll, UnionAll, plan sharing and spies.
 """
 from .aggregate import (AggregateClusters,
                         AggregateClustersWithSpecifiedOutputBlockSize,

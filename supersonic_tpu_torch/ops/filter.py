@@ -3,9 +3,10 @@
 Port of ``supersonic_tpu/ops/filter.py`` (reference: cursor/core/
 filter.cc:65-230; NULL counts as false, filter.cc:169-198).  Survivors move
 through the compaction kernel (kernels/compaction.py) in one pass, every
-column and validity mask together.  Sort, GroupAggregate and HashJoin fuse
-a child Filter instead (``unwrap_filters`` + ``keep_mask``): the predicate
-becomes their keep mask and nothing is compacted.
+column and validity mask together.  Sort and GroupAggregate fuse a child
+Filter instead (``hash_join.bind_fused``), and HashJoin its lhs Filters
+(``unwrap_filters`` + ``keep_mask``): the predicate becomes their keep mask
+and nothing is compacted.
 """
 from __future__ import annotations
 

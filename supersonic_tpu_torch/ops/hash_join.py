@@ -329,12 +329,41 @@ def _expand(lt: Table, lsrcs, rt: Table, rsrcs, build_perm, lkeep, count,
     return lcols, rcols, n_out
 
 
-def binds_masked(op: Operation) -> bool:
-    """Whether a GroupAggregate or Sort over ``op`` binds it masked: a
-    UNIQUE INNER or LEFT_OUTER join (the outer rewrites emit more rows than
-    the lhs holds)."""
-    return (isinstance(op, HashJoin) and op.uniqueness == KeyUniqueness.UNIQUE
-            and op.join_type in (JoinType.INNER, JoinType.LEFT_OUTER))
+def bind_fused(child: Operation, ctx: BindContext, plain_bind=None):
+    """Bind the child of a consumer that takes a keep mask in place of
+    compacted rows (GroupAggregate, Sort).  Its Filters are peeled off and
+    their predicates bound over what they wrap.  A UNIQUE INNER or
+    LEFT_OUTER join binds masked: its keep mask (the matches for INNER, the
+    kept lhs rows for LEFT_OUTER) comes with its rows at lhs capacity.
+    Anything else binds through ``plain_bind(op)`` (default
+    ``op.bind(ctx)``): a NOT_UNIQUE join expands, and the outer rewrites
+    emit more rows than the lhs holds.  Returns (the bound child, run):
+    ``run(rctx)`` gives (Table, the join's keep AND the predicates', or
+    None when there is neither)."""
+    from .filter import bind_predicates, keep_mask, unwrap_filters
+    inner, preds = unwrap_filters(child)
+    masked = (isinstance(inner, HashJoin)
+              and inner.uniqueness == KeyUniqueness.UNIQUE
+              and inner.join_type in (JoinType.INNER, JoinType.LEFT_OUTER))
+    if masked:
+        cb = inner.bind(ctx, _masked=True)
+    elif plain_bind is not None:
+        cb = plain_bind(inner)
+    else:
+        cb = inner.bind(ctx)
+    bound_preds = bind_predicates(preds, cb)
+
+    def run(rctx: RunContext):
+        if masked:
+            t, keep = cb.run(rctx)
+        else:
+            t, keep = cb.run(rctx), None
+        if bound_preds:
+            pk = keep_mask(bound_preds, rctx, t)
+            keep = pk if keep is None else (keep & pk)
+        return t, keep
+
+    return cb, run
 
 
 class HashJoin(Operation):
@@ -363,9 +392,7 @@ class HashJoin(Operation):
 
     def bind(self, ctx: BindContext, _masked: bool = False) -> BoundOperation:
         # _masked (UNIQUE rhs only): produce the output at lhs capacity as
-        # (Table, keep mask) without compacting; GroupAggregate and Sort
-        # fold the mask into their own keep mask (the same fusion as
-        # unwrap_filters)
+        # (Table, keep mask) without compacting, for bind_fused
         if self.join_type in (JoinType.RIGHT_OUTER, JoinType.FULL_OUTER):
             if _masked:
                 raise SchemaError(

@@ -117,23 +117,19 @@ class Sort(Operation):
 
     def bind(self, ctx: BindContext) -> BoundOperation:
         from .aggregate import GroupAggregate
-        from .filter import bind_predicates, keep_mask, unwrap_filters
-        from .hash_join import binds_masked
-        inner, preds = unwrap_filters(self.child)
-        # a UNIQUE join child (INNER or LEFT_OUTER) binds masked and its
-        # keep mask becomes the pad mask; a NOT_UNIQUE one binds unmasked;
-        # an aggregate child skips its insertion-order re-rank
-        # (tie order among equal sort keys becomes key order; the
-        # reference's unstable std::sort promises none either)
-        masked_join = binds_masked(inner)
-        if masked_join:
-            cb = inner.bind(ctx, _masked=True)
-        elif (isinstance(inner, GroupAggregate)
-              and inner.options.max_unique_keys_in_result is None):
-            cb = inner.bind(ctx, _unordered=True)
-        else:
-            cb = inner.bind(ctx)
-        bound_preds = bind_predicates(preds, cb)
+        from .hash_join import bind_fused
+
+        def plain_bind(op):
+            # an aggregate child skips its insertion-order re-rank (tie
+            # order among equal sort keys becomes key order; the
+            # reference's unstable std::sort promises none either)
+            if (isinstance(op, GroupAggregate)
+                    and op.options.max_unique_keys_in_result is None):
+                return op.bind(ctx, _unordered=True)
+            return op.bind(ctx)
+
+        # the fused Filters' and a masked join's keep becomes the pad mask
+        cb, run_child = bind_fused(self.child, ctx, plain_bind)
         for k in self.order.keys:
             cb.schema.lookup(k.name)
         order = self.order
@@ -151,13 +147,7 @@ class Sort(Operation):
             out_schema, out_dicts = cb.schema, cb.dicts
 
         def fn(rctx: RunContext) -> Table:
-            if masked_join:
-                t, keep = cb.run(rctx)
-            else:
-                t, keep = cb.run(rctx), None
-            if bound_preds:
-                pk = keep_mask(bound_preds, rctx, t)
-                keep = pk if keep is None else (keep & pk)
+            t, keep = run_child(rctx)
             if keep is not None:
                 sorted_t = sort_table(t, order, pad_mask=~keep,
                                       num_rows=keep.sum())

@@ -42,7 +42,7 @@ from ..ops.aggregate import (AggregationSpecification, AggSpec, Aggregation,
 from ..ops.base import (BindContext, RunContext, compile_plan,
                         prepare_leaves, raise_flags)
 from ..ops.filter import compact_by_mask
-from ..ops.hash_join import HashJoin, JoinType, KeyUniqueness
+from ..ops.hash_join import HashJoin, JoinType, KeyUniqueness, bind_fused
 from ..ops.keys import group_code_columns, key_operands
 from ..ops.scan import ScanTable
 from ..ops.sort import Sort, SortOrder
@@ -510,8 +510,8 @@ def _masked_join(lt: Table, rt: Table, lkeys, rkeys):
     plan = HashJoin(JoinType.INNER, lkeys, rkeys, ScanTable(lt),
                     ScanTable(rt), KeyUniqueness.UNIQUE)
     ctx = BindContext()
-    bound = plan.bind(ctx, _masked=True)
-    return bound.run(RunContext(ctx.leaves))
+    _, run = bind_fused(plan, ctx)
+    return run(RunContext(ctx.leaves))
 
 
 def _rotate_start(mesh: Mesh, lanes: list[torch.Tensor]):

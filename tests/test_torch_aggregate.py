@@ -478,9 +478,7 @@ def test_nullable_key_from_a_left_outer_join_matches_jax():
 
     jp = plan(J, jf, jd)
     jp._pushdown_disabled = True
-    tp = plan(T, tf, td)
-    tp._pushdown_disabled = True
-    got, want = T.execute(tp), J.execute(jp)
+    got, want = T.execute(plan(T, tf, td)), J.execute(jp)
     assert None in [r[0] for r in got.to_pylist()]
     hit = fk < m
     assert_rows_match(got, want, 1, {"sv": (F32_TOL, group_sums(
@@ -872,7 +870,8 @@ def test_rows_past_the_sorted_count_are_never_read(monkeypatch, child):
             ns.ScanTable(dim), ns.KeyUniqueness.UNIQUE,
             lhs_projector=ns.Projector.named("d", "v"),
             rhs_projector=ns.Projector.named("w")))
-        agg._pushdown_disabled = True
+        if ns is J:
+            agg._pushdown_disabled = True
         return agg
 
     got, want = T.execute(plan(T, tt, td)), J.execute(plan(J, jt, jd))
@@ -987,7 +986,8 @@ def _live_plan(ns, mode, child):
             if mode == "plain"
             else ns.GroupAggregateOptions(max_unique_keys_in_result=7))
     agg = ns.GroupAggregate(["k"], specs, child, opts)
-    agg._pushdown_disabled = True
+    if ns is J:
+        agg._pushdown_disabled = True
     return agg
 
 

@@ -17,10 +17,9 @@ cancellation poll counts, random plans).
 
 Left out, and why:
 - tests/test_agg_pushdown.py's asserts that the pushdown fires: the port
-  binds aggregates over joins directly by default (ops/aggregate.py's
-  ``_pushdown_disabled``: the direct binding measured faster on the
-  card); its rows under both bindings are held in
-  tests/test_torch_pushdown.py.
+  has no pushdown and binds every aggregate over a join directly (the
+  rewrite measured slower on the card); its rows are held to the JAX
+  package's under both of its bindings in tests/test_torch_pushdown.py.
 - Tests of JAX internals: test_exprs.py::
   test_constant_subtrees_fold_in_compiled_hlo (XLA's HLO; the port's
   folding is held in test_torch_exprs_extended.py),

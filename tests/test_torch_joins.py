@@ -450,3 +450,89 @@ def test_unique_fat_lut_with_duplicate_rhs_keys_takes_the_last_row(jt):
     assert rows == want
     assert any(x[2] is None for x in rows) and any(x[2] is not None
                                                    for x in rows)
+
+
+FUSE_FACT = (("fk", "INT32", False), ("v", "FLOAT", False),
+             ("id", "INT64", False))
+FUSE_DIM = (("pk", "INT32", False), ("w", "INT64", True))
+
+
+@pytest.mark.parametrize("join", ["INNER", "LEFT_OUTER", "NOT_UNIQUE"])
+@pytest.mark.parametrize("consumer", ["GroupAggregate", "Sort"])
+def test_consumer_fuses_its_filters_and_a_unique_join(monkeypatch, consumer,
+                                                      join):
+    """GroupAggregate and Sort over Filter(Filter(join)): both Filters
+    become the consumer's keep mask and a UNIQUE INNER or LEFT_OUTER join
+    binds masked, so nothing is compacted (no ``compact_by_mask`` call); a
+    NOT_UNIQUE join expands, so it binds unmasked.  The rows are the JAX
+    package's, bound directly."""
+    import supersonic_tpu_torch.ops.filter as TF
+
+    rng = np.random.default_rng(17)
+    n, m = 600, 160
+    unique = join != "NOT_UNIQUE"
+    keys = m if unique else m // 4
+    pk = rng.permutation(m) if unique else np.arange(m) // 4
+    w = rng.integers(0, 9, m)  # nullable, and NULL only past LEFT_OUTER
+    f = _both(FUSE_FACT, {
+        "fk": rng.integers(0, keys + keys // 4, n).astype(np.int32),
+        "v": rng.random(n, dtype=np.float32),
+        "id": np.arange(n, dtype=np.int64)})
+    d = _both(FUSE_DIM, {
+        "pk": pk.astype(np.int32),
+        "w": w})
+
+    def make(ns, f, d):
+        child = ns.HashJoin(
+            ns.JoinType.INNER if join == "NOT_UNIQUE"
+            else getattr(ns.JoinType, join), ["fk"], ["pk"],
+            ns.ScanTable(f), ns.ScanTable(d),
+            ns.KeyUniqueness.UNIQUE if unique
+            else ns.KeyUniqueness.NOT_UNIQUE,
+            lhs_projector=ns.Projector.named("v", "id"),
+            rhs_projector=ns.Projector.named("w"), out_capacity=4 * n)
+        child = ns.Filter(ns.col("v") < ns.Const(0.9, ns.DataType.FLOAT),
+                          child)
+        child = ns.Filter(ns.col("v") > ns.Const(0.2, ns.DataType.FLOAT),
+                          child)
+        if consumer == "Sort":
+            return ns.Sort([ns.SortKey("w"), ns.SortKey("id"),
+                            ns.SortKey("v", ascending=False)], child)
+        A = ns.Aggregation
+        agg = ns.GroupAggregate(
+            ["w"], [ns.AggSpec(A.SUM, "v", "sv"),
+                    ns.AggSpec(A.COUNT, None, "c"),
+                    ns.AggSpec(A.MAX, "id", "mx")], child)
+        if ns is J:
+            agg._pushdown_disabled = True
+        return agg
+
+    compactions, masked = [], []
+    orig_compact, orig_bind = TF.compact_by_mask, T.HashJoin.bind
+
+    def compact(*args, **kw):
+        compactions.append(1)
+        return orig_compact(*args, **kw)
+
+    def bind(self, ctx, _masked=False):
+        masked.append(_masked)
+        return orig_bind(self, ctx, _masked=_masked)
+
+    monkeypatch.setattr(TF, "compact_by_mask", compact)
+    monkeypatch.setattr(T.HashJoin, "bind", bind)
+    want = J.execute(make(J, *[t[0] for t in (f, d)]))
+    got = T.execute(make(T, *[t[1] for t in (f, d)]))
+    assert compactions == []
+    assert masked == [unique]
+    assert [(a.name, a.type.value, a.nullable) for a in got.schema] == \
+        [(a.name, a.type.value, a.nullable) for a in want.schema]
+    rows, want_rows = got.to_pylist(), want.to_pylist()
+    if consumer == "Sort":
+        assert rows == want_rows
+    else:  # w, sv, c, mx in insertion order
+        assert [(r[0], r[2], r[3]) for r in rows] == \
+            [(r[0], r[2], r[3]) for r in want_rows]
+        np.testing.assert_allclose([r[1] for r in rows],
+                                   [r[1] for r in want_rows], rtol=1e-5)
+    w_at = list(got.schema.names()).index("w")
+    assert any(r[w_at] is None for r in rows) == (join == "LEFT_OUTER")

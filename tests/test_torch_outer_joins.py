@@ -188,7 +188,8 @@ def test_outer_join_under_group_aggregate_and_sort(jt):
                                                   "s"),
                                        ns.AggSpec(ns.Aggregation.COUNT, None,
                                                   "c")], join)
-        g._pushdown_disabled = True
+        if ns is J:
+            g._pushdown_disabled = True
         return g
 
     got = T.execute(agg(T, l[1], r[1], False)).to_pylist()

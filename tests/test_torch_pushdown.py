@@ -1,12 +1,14 @@
-"""The port's aggregate pushdown against the JAX package's, both on the
-CPU, mirroring tests/test_agg_pushdown.py: the rewrite (pregroup the probe
-side by its join key, join the partials, aggregate again, Sort by first
-position when ordered) must fire where the JAX package's fires, give its
-rows and the port's own direct binding's rows, with the direct binding's
-exact output schema (COUNT a non-nullable UINT64).  That includes the
-ordered NOT_UNIQUE rewrite, whose join takes the merge probe, and a
-STRING join key ranged by its dictionary.  Each case sets the binding on
-the plan (``_pushdown_disabled``), whatever the port's default."""
+"""The port's one binding of a group-by over an INNER or LEFT_OUTER join,
+held to the JAX package's under both of its bindings, on the CPU,
+mirroring tests/test_agg_pushdown.py.  The JAX package rewrites such a
+plan by default (its aggregate pushdown: pregroup the probe side by its
+join key, join the partials, aggregate again, Sort by first position when
+ordered); the port binds it directly.  Each case asserts that the JAX
+rewrite fires, or declines, where it does in tests/test_agg_pushdown.py,
+and that the port's rows equal the rewrite's and the JAX direct binding's,
+with the same output schema (COUNT a non-nullable UINT64).  That includes
+the ordered NOT_UNIQUE rewrite, whose join takes the merge probe, and a
+STRING join key ranged by its dictionary."""
 import numpy as np
 import pytest
 import torch
@@ -14,7 +16,6 @@ import torch
 import supersonic_tpu as J
 import supersonic_tpu.ops.aggregate as JA
 import supersonic_tpu_torch as T
-import supersonic_tpu_torch.ops.aggregate as TA
 
 from torch_parity import (DIM_SCHEMA, FACT_SCHEMA, headline_data,
                           headline_plan, jax_table, tables, torch_table)
@@ -24,35 +25,31 @@ torch.set_num_threads(1)
 
 @pytest.fixture
 def counted(monkeypatch):
-    """{"J": fired rewrites of the JAX package, "T": of the port}."""
-    calls = {"J": 0, "T": 0}
-    for key, mod in (("J", JA), ("T", TA)):
-        orig = mod.GroupAggregate._try_aggregate_pushdown
+    """{"J": the JAX package's fired rewrites}."""
+    calls = {"J": 0}
+    orig = JA.GroupAggregate._try_aggregate_pushdown
 
-        def wrap(self, ctx, uo, orig=orig, key=key):
-            r = orig(self, ctx, uo)
-            calls[key] += r is not None
-            return r
+    def wrap(self, ctx, uo):
+        r = orig(self, ctx, uo)
+        calls["J"] += r is not None
+        return r
 
-        monkeypatch.setattr(mod.GroupAggregate, "_try_aggregate_pushdown",
-                            wrap)
+    monkeypatch.setattr(JA.GroupAggregate, "_try_aggregate_pushdown", wrap)
     return calls
 
 
-def _agg_of(plan):
-    return plan.child if isinstance(plan, (J.Sort, T.Sort)) else plan
-
-
-def _bind(plan, pushdown: bool):
-    _agg_of(plan)._pushdown_disabled = not pushdown
+def _jax(plan, pushdown: bool):
+    """A JAX plan with its aggregate's binding set."""
+    agg = plan.child if isinstance(plan, J.Sort) else plan
+    agg._pushdown_disabled = not pushdown
     return plan
 
 
 def _run(plan_fn, jargs, targs):
-    """(port through the pushdown, port direct, JAX through the pushdown)."""
-    return (T.execute(_bind(plan_fn(T, *targs), True)),
-            T.execute(_bind(plan_fn(T, *targs), False)),
-            J.execute(_bind(plan_fn(J, *jargs), True)))
+    """(the port, JAX through the pushdown, JAX direct)."""
+    return (T.execute(plan_fn(T, *targs)),
+            J.execute(_jax(plan_fn(J, *jargs), True)),
+            J.execute(_jax(plan_fn(J, *jargs), False)))
 
 
 def _rows_close(got, want, rtol):
@@ -66,16 +63,16 @@ def _rows_close(got, want, rtol):
                 assert x == y, (a, b)
 
 
-def _check(got, direct, want, nkeys=1):
-    """The port's pushdown rows equal the JAX package's pushdown rows and
-    the port's direct rows; the schema is the direct binding's."""
-    schema = [(a.name, a.type.value, a.nullable) for a in got.schema]
-    assert schema == [(a.name, a.type.value, a.nullable)
-                      for a in want.schema]
-    assert schema == [(a.name, a.type.value, a.nullable)
-                      for a in direct.schema]
-    _rows_close(got.to_pylist(), want.to_pylist(), 1e-5)
-    _rows_close(got.to_pylist(), direct.to_pylist(), 1e-4)
+def _schema(t):
+    return [(a.name, a.type.value, a.nullable) for a in t.schema]
+
+
+def _check(got, pushed, direct):
+    """The port's rows equal the JAX pushdown's within rtol 1e-4 and the
+    JAX direct binding's within 1e-5; the three schemas are equal."""
+    assert _schema(got) == _schema(pushed) == _schema(direct)
+    _rows_close(got.to_pylist(), pushed.to_pylist(), 1e-4)
+    _rows_close(got.to_pylist(), direct.to_pylist(), 1e-5)
 
 
 FACT_COLS = (("fk", "INT32", False), ("v", "FLOAT", False),
@@ -115,9 +112,9 @@ def test_pushdown_ordered_exact(counted):
     """Insertion order (MIN of first positions, then a Sort) row for row,
     with the direct binding's schema: COUNT a non-nullable UINT64."""
     jargs, targs = _data()
-    got, direct, want = _run(_plan, jargs, targs)
-    assert counted == {"J": 1, "T": 1}, "pushdown did not fire"
-    _check(got, direct, want)
+    got, pushed, direct = _run(_plan, jargs, targs)
+    assert counted == {"J": 1}, "pushdown did not fire"
+    _check(got, pushed, direct)
     assert got.schema.lookup("c").type == T.UINT64
     assert not got.schema.lookup("c").nullable
 
@@ -128,15 +125,15 @@ def test_pushdown_under_sort_unordered(counted):
     def p(ns, f, d):
         return ns.Sort([ns.SortKey("si", ascending=False)], _plan(ns, f, d))
 
-    got, direct, want = _run(p, jargs, targs)
-    assert counted == {"J": 1, "T": 1}
-    _check(got, direct, want)
+    got, pushed, direct = _run(p, jargs, targs)
+    assert counted == {"J": 1}
+    _check(got, pushed, direct)
 
 
 def test_pushdown_count_as_sum_and_empty_groups(counted):
     """INNER groups exist only for matched keys; COUNT counts the non-NULL
-    inputs, and becomes a SUM of INT32 partial counts into UINT64 (the
-    sort path in both packages, at 7 groups)."""
+    inputs, and in the JAX rewrite becomes a SUM of INT32 partial counts
+    into UINT64: the port's rows equal both JAX bindings' exactly."""
     rng = np.random.default_rng(3)
     n, m = 9000, 500
     cols = (("fk", "INT32", False), ("x", "INT32", True))
@@ -158,9 +155,10 @@ def test_pushdown_count_as_sum_and_empty_groups(counted):
                         rhs_projector=ns.Projector.named("g")),
             ns.GroupAggregateOptions(estimated_result_row_count=16))
 
-    got, direct, want = _run(p, (jf, jd), (tf, td))
-    assert counted == {"J": 1, "T": 1}
-    assert got.to_pylist() == want.to_pylist() == direct.to_pylist()
+    got, pushed, direct = _run(p, (jf, jd), (tf, td))
+    assert counted == {"J": 1}
+    _check(got, pushed, direct)
+    assert got.to_pylist() == pushed.to_pylist() == direct.to_pylist()
 
 
 def test_pushdown_string_group_key(counted):
@@ -183,19 +181,22 @@ def test_pushdown_string_group_key(counted):
                         rhs_projector=ns.Projector.named("s")),
             ns.GroupAggregateOptions(estimated_result_row_count=16))
 
-    got, direct, want = _run(p, (jf, jd), (tf, td))
-    assert counted == {"J": 1, "T": 1}
-    _check(got, direct, want)
+    got, pushed, direct = _run(p, (jf, jd), (tf, td))
+    assert counted == {"J": 1}
+    _check(got, pushed, direct)
     assert sorted(r[0] for r in got.to_pylist()) == list(words)
 
 
 def test_pushdown_declines_ineligible(counted):
-    """No rewrite in either package for: a probe side too small to shrink,
-    group keys from the probe side, aggregate inputs from the build side,
-    FIRST (not decomposable)."""
+    """The JAX package declines the rewrite for: a probe side too small to
+    shrink, group keys from the probe side, aggregate inputs from the build
+    side, FIRST (not decomposable); the port's rows are its direct
+    binding's."""
     (jf, jd), (tf, td) = _data(n=4000, m=3000)  # range * 4 > capacity
-    for ns, f, d in ((J, jf, jd), (T, tf, td)):
-        ns.execute(_bind(_plan(ns, f, d), True))
+    got = T.execute(_plan(T, tf, td))
+    want = J.execute(_jax(_plan(J, jf, jd), True))
+    assert _schema(got) == _schema(want)
+    _rows_close(got.to_pylist(), want.to_pylist(), 1e-5)
     (jf, jd), (tf, td) = _data()
 
     def probe_key(ns, f, d):
@@ -227,17 +228,17 @@ def test_pushdown_declines_ineligible(counted):
                         rhs_projector=ns.Projector.named("g")),
             ns.GroupAggregateOptions(estimated_result_row_count=64))
 
-    got = T.execute(_bind(probe_key(T, tf, td), True)).to_pylist()
-    want = J.execute(_bind(probe_key(J, jf, jd), True)).to_pylist()
+    got = T.execute(probe_key(T, tf, td)).to_pylist()
+    want = J.execute(_jax(probe_key(J, jf, jd), True)).to_pylist()
     assert [r[0] for r in got] == [r[0] for r in want]
     fk, v = tf.columns["fk"].values.numpy(), tf.columns["v"].values.numpy()
     sums = np.bincount(fk, weights=v.astype(np.float64))
     np.testing.assert_allclose([r[1] for r in got],
                                [sums[r[0]] for r in got], rtol=1e-6)
     for make in (build_input, first):  # binds only: no row is compared
-        _bind(make(T, tf, td), True).bind(T.BindContext())
-        _bind(make(J, jf, jd), True).bind(J.BindContext())
-    assert counted == {"J": 0, "T": 0}
+        make(T, tf, td).bind(T.BindContext())
+        _jax(make(J, jf, jd), True).bind(J.BindContext())
+    assert counted == {"J": 0}
 
 
 def _not_unique_data(n=20000, m=2000, seed=5):
@@ -275,28 +276,27 @@ def test_pushdown_not_unique_under_sort(counted):
         return ns.Sort([ns.SortKey("si", ascending=False)],
                        _not_unique_agg(ns, f, d))
 
-    got, direct, want = _run(p, jargs, targs)
-    assert counted == {"J": 1, "T": 1}
-    _check(got, direct, want)
+    got, pushed, direct = _run(p, jargs, targs)
+    assert counted == {"J": 1}
+    _check(got, pushed, direct)
 
 
 def test_ordered_not_unique_pushdown_declines(counted):
     """The ordered NOT_UNIQUE rewrite ranks groups by the least (first
     probe position, build row) pair, whose build row is a computed column
-    without statistics, so its join takes the merge probe.  The port
-    declined it before the merge probe was ported; now it fires, as the JAX
-    package's does, and gives its rows and the direct binding's."""
+    without statistics, so its join takes the merge probe.  It fires in
+    the JAX package; the port's rows equal its rows and the JAX direct
+    binding's."""
     jargs, targs = _not_unique_data()
-    got, direct, want = _run(_not_unique_agg, jargs, targs)
-    assert counted == {"J": 1, "T": 1}
-    _check(got, direct, want)
+    got, pushed, direct = _run(_not_unique_agg, jargs, targs)
+    assert counted == {"J": 1}
+    _check(got, pushed, direct)
 
 
 def test_string_join_key_pushdown_declines(counted):
-    """A STRING join key is ranged by its dictionary, as in the JAX
-    package: the port declined it before its join took STRING keys; now the
-    rewrite fires in both packages and gives the JAX package's rows and the
-    direct binding's."""
+    """A STRING join key is ranged by its dictionary: the JAX rewrite
+    fires, and the port's rows equal its rows and the JAX direct
+    binding's."""
     rng = np.random.default_rng(12)
     n, m = 400, 20
     words = tuple(f"k{i:02d}" for i in range(m))
@@ -315,9 +315,9 @@ def test_string_join_key_pushdown_declines(counted):
                         lhs_projector=ns.Projector.named("v"),
                         rhs_projector=ns.Projector.named("g")))
 
-    got, direct, want = _run(p, (jf, jd), (tf, td))
-    assert counted == {"J": 1, "T": 1}
-    _check(got, direct, want)
+    got, pushed, direct = _run(p, (jf, jd), (tf, td))
+    assert counted == {"J": 1}
+    _check(got, pushed, direct)
 
 
 @pytest.mark.parametrize("ordered", [True, False])
@@ -326,8 +326,8 @@ def test_pushdown_string_key_not_unique_separate_dictionaries(counted,
     """The ordered and the sorted NOT_UNIQUE rewrite over a STRING join key
     whose build side has a dictionary of its own, holding words the probe
     lacks: the rewritten join remaps the build side and ranks groups by
-    (probe, build row) pairs through the merge probe; the rows are the JAX
-    package's pushdown rows and the port's direct rows."""
+    (probe, build row) pairs through the merge probe; the port's rows are
+    the JAX package's under both bindings."""
     rng = np.random.default_rng(23)
     n, m = 600, 90
     lw = tuple(f"k{i:02d}" for i in range(0, 40, 2))
@@ -356,9 +356,9 @@ def test_pushdown_string_key_not_unique_separate_dictionaries(counted,
         return agg(ns, f, d) if ordered else ns.Sort(
             [ns.SortKey("sv", False)], agg(ns, f, d))
 
-    got, direct, want = _run(p, (jf, jd), (tf, td))
-    assert counted == {"J": 1, "T": 1}
-    _check(got, direct, want)
+    got, pushed, direct = _run(p, (jf, jd), (tf, td))
+    assert counted == {"J": 1}
+    _check(got, pushed, direct)
 
 
 @pytest.mark.parametrize("uniq", ["UNIQUE", "NOT_UNIQUE"])
@@ -398,18 +398,19 @@ def test_pushdown_left_outer(counted, uniq, ordered):
         return agg(ns, f, d) if ordered else ns.Sort(
             [ns.SortKey("sv", False)], agg(ns, f, d))
 
-    got, direct, want = _run(p, (jf, jd), (tf, td))
-    assert counted == {"J": 1, "T": 1}
+    got, pushed, direct = _run(p, (jf, jd), (tf, td))
+    assert counted == {"J": 1}
     assert None in [r[0] for r in got.to_pylist()]
-    _check(got, direct, want)
+    _check(got, pushed, direct)
 
 
 @pytest.mark.parametrize("projectors", [True, False],
                          ids=["bench_plan", "graft_entry_plan"])
 def test_headline_through_the_pushdown(counted, projectors):
-    """The headline plan at the entry shape (8192 x 1024) through the
-    pushdown: the JAX package's default binding, rows equal to its rows
-    and to the port's direct binding's."""
+    """The headline plan at the entry shape (8192 x 1024): the port's rows
+    equal the JAX package's through its default binding, the pushdown (by
+    key: sums that differ in their last bits may swap two near-equal
+    groups under the Sort), and through its direct binding."""
     fact, dim = headline_data(8192, 1024)
     jargs = (jax_table(J, FACT_SCHEMA, fact), jax_table(J, DIM_SCHEMA, dim))
     targs = (torch_table(T, FACT_SCHEMA, fact),
@@ -418,9 +419,10 @@ def test_headline_through_the_pushdown(counted, projectors):
     def p(ns, f, d):
         return headline_plan(ns, f, d, projectors)
 
-    got, direct, want = _run(p, jargs, targs)
-    assert counted == {"J": 1, "T": 1}
-    by_key = {r[0]: r for r in direct.to_pylist()}
-    _rows_close(sorted(got.to_pylist()), sorted(want.to_pylist()), 1e-5)
+    got, pushed, direct = _run(p, jargs, targs)
+    assert counted == {"J": 1}
+    assert _schema(got) == _schema(pushed) == _schema(direct)
+    by_key = {r[0]: r for r in pushed.to_pylist()}
     _rows_close(got.to_pylist(), [by_key[r[0]] for r in got.to_pylist()],
                 1e-4)
+    _rows_close(got.to_pylist(), direct.to_pylist(), 1e-5)

@@ -275,7 +275,6 @@ def test_a_sort_path_group_by_reads_its_live_rows_once(recorded, child):
                 T.AggSpec(A.MIN, "v", "mn"),
                 T.AggSpec(A.SUM, "v", "ds", output_type=T.INT64,
                           distinct=True)], node)
-    plan._pushdown_disabled = True
     assert _agg_reads(plan) == [({"transfers": 0, "capacity": 4000,
                                   "rows": int(keep.sum())},
                                  "op.GroupAggregate.run")]
