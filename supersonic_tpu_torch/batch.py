@@ -14,13 +14,16 @@ column has a static capacity (``values.shape[0]``); ``num_rows`` is a
 python int for tables built on the host, or a 0-d int64 tensor on the
 table's device for tables an operator produced, and says how many leading
 rows are live (``row_mask()``).  Operators therefore do not wait for the
-device to learn a row count, with one exception: the sort-path group-by
-reads its live row count once (sync ``agg.num_rows``, ops/aggregate.py),
-because a sort needs a length and eager PyTorch cannot give one without
-the host, and sorting the capacity instead costs far more than the read
-where a filter or a join keeps few rows.  Every other operator runs
-without a host sync, and ``execute`` reads the error flags back in one
-sync at the end.  It also
+device to learn a row count, with two exceptions, each reading a live row
+count once because every later pass needs a length and eager PyTorch
+cannot give one without the host: the sort-path group-by (sync
+``agg.num_rows``, ops/aggregate.py), since sorting the capacity costs far
+more than the read where a filter or a join keeps few rows; and a join
+that compacts its output (sync ``join.num_rows``, ops/hash_join.py),
+which hands on the prefix of its survivors, so the joins, expressions and
+aggregates above it run over those rows and not over the lhs capacity.
+Every other operator runs without a host sync, and ``execute`` reads the
+error flags back in one sync at the end.  It also
 keeps overflow behaviour the same as the reference: an operator whose
 result outgrows its planned capacity raises the same error flag
 (``"aggregate result overflow"``, ``"join result overflow"``).  Rows past
@@ -317,6 +320,21 @@ class Table:
     def __repr__(self) -> str:
         return (f"Table({self.schema!r}, num_rows={self.num_rows}, "
                 f"capacity={self.capacity}, device={self.device})")
+
+
+def pad_table(table: Table, cap: int) -> Table:
+    """``table`` with its columns zero-padded to ``cap`` rows (as it is
+    where it holds as many already)."""
+    if table.capacity >= cap:
+        return table
+
+    def pad(x):
+        return torch.cat([x, x.new_zeros(cap - x.shape[0])])
+
+    cols = {n: Column(pad(c.values), None if c.valid is None
+                      else pad(c.valid)) for n, c in table.columns.items()}
+    return Table(table.schema, cols, table.num_rows, table.device,
+                 table.dicts, cap_hint=cap)
 
 
 def gather_arrays(arrays: Sequence[torch.Tensor],

@@ -43,7 +43,13 @@ GroupAggregate and Sort it binds MASKED: its output stays at lhs capacity
 with a keep mask (the matches for INNER, every kept lhs row for
 LEFT_OUTER).  Unmasked, a LEFT_OUTER join without a fused Filter is
 zero-copy at lhs capacity, and otherwise the emitted rows move through the
-compaction kernel.
+compaction kernel into lanes no longer than the lhs.  That join reads its
+row count on the host once (sync ``join.num_rows``): every later pass
+needs a length, and eager PyTorch gives none without the host.  Its output
+is the prefix of its survivors, with a host row count, so the operators
+above it (another join, a Compute, an aggregate) run over those rows and
+not over the lhs capacity.  The table keeps one row of capacity when none
+survives, as every table of the port does.
 
 A NOT_UNIQUE join emits ``count`` rows per kept lhs row (at least one for
 LEFT_OUTER) at int64 offsets, raising "join result overflow" past its
@@ -65,6 +71,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from .. import tracing
 from ..batch import Column, Table, gather_table
 from ..kernels import MAX_ARRAYS
 from ..kernels.compaction import compact_kernel
@@ -582,7 +589,8 @@ class HashJoin(Operation):
                 return out
             # compacted output: INNER keeps the matches, LEFT_OUTER under a
             # fused Filter every kept row; lhs columns and fetched rhs
-            # columns ride one compaction
+            # columns ride one compaction, whose count is read once and
+            # whose prefix of survivors is the output
             emit = lkeep if left_outer else matched
             lsub = _subset(lt, lsrcs)
             aug_attrs, aug_cols, rname = [], dict(lsub.columns), {}
@@ -600,12 +608,17 @@ class HashJoin(Operation):
             if out_cap < lt.capacity:
                 rctx.error_flags.append((
                     "join result overflow", emit.sum() > out_cap))
-            moved = compact_by_mask(aug, emit, out_cap)
-            cols = {dst: moved.columns[src] for src, dst in lpairs}
-            cols.update({dst: moved.columns[rname[src]]
-                         for src, dst in rpairs})
-            return Table(out_schema, cols, moved.num_rows, lt.device,
-                         out_dicts, cap_hint=out_cap)
+            moved = compact_by_mask(aug, emit, min(out_cap, lt.capacity))
+            n = tracing.count_to_host(moved.num_rows, "join.num_rows",
+                                      lt.capacity)
+            live = max(n, 1)
+            kept = {nm: Column(c.values[:live], None if c.valid is None
+                               else c.valid[:live])
+                    for nm, c in moved.columns.items()}
+            cols = {dst: kept[src] for src, dst in lpairs}
+            cols.update({dst: kept[rname[src]] for src, dst in rpairs})
+            return Table(out_schema, cols, n, lt.device, out_dicts,
+                         cap_hint=live)
 
         out_stats = {dst: lb.stats[src] for src, dst in lpairs
                      if src in lb.stats}

@@ -25,7 +25,7 @@ from typing import Optional, Sequence
 import torch
 
 from .. import tracing
-from ..batch import Column, Table, gather_table
+from ..batch import Column, Table, gather_table, pad_table
 from ..dictionary import transform as dict_transform
 from ..kernels.lut_gather import BoundLut, take_small
 from ..schema import Attribute, SchemaError, TupleSchema
@@ -238,20 +238,6 @@ def sort_working_set_bytes(schema: TupleSchema, capacity: int,
     return 2 * capacity * row
 
 
-def _padded(table: Table, cap: int) -> Table:
-    """``table`` with its columns zero-padded to ``cap`` rows."""
-    if table.capacity >= cap:
-        return table
-
-    def pad(x):
-        return torch.cat([x, x.new_zeros(cap - x.shape[0])])
-
-    cols = {n: Column(pad(c.values), None if c.valid is None
-                      else pad(c.valid)) for n, c in table.columns.items()}
-    return Table(table.schema, cols, table.num_rows, table.device,
-                 table.dicts, cap_hint=cap)
-
-
 class SortWithTempDirPrefix(Operation):
     """Sort under the reference's ``buffer_memory_limit`` (sort.h:89-98):
     an input past the limit sorts externally over spilled runs
@@ -307,7 +293,7 @@ class SortWithTempDirPrefix(Operation):
                                   None if src.columns[a.name].valid is None
                                   else src.columns[a.name].valid[start:stop])
                          for a in schema}, dict(src.dicts), stop - start)
-                return _padded(sorter.result(capacity=out_cap), out_cap)
+                return pad_table(sorter.result(capacity=out_cap), out_cap)
 
         idx = ctx.register_lazy_leaf(
             placeholder(schema, out_cap, cb.dicts), producer)

@@ -34,7 +34,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..batch import Column, Table, concat_tables, gather_table
+from ..batch import (Column, Table, concat_tables, gather_table,
+                     pad_table)
 from ..exprs.base import EvaluationError
 from ..ops.aggregate import (AggregationSpecification, AggSpec, Aggregation,
                              BestEffortGroupAggregate, GroupAggregate,
@@ -227,8 +228,10 @@ def run_local_plan(plan_builder: Callable[[Table], "object"],
     failed on a shard: ...")`` ("warning:" flags warn), as
     ``ops/base.py::execute`` raises; deferred host work (CONCAT, unbounded
     rendering) cannot run inside a distributed plan and raises
-    ``SchemaError``."""
-    run, _bound, leaves = compile_plan(plan_builder(table))
+    ``SchemaError``.  The result is padded to the plan's bound capacity,
+    the same on every rank: a join that compacts its output sizes it by
+    its own survivors, and the collectives need equal capacities."""
+    run, bound, leaves = compile_plan(plan_builder(table))
     out, flags, names = run(prepare_leaves(leaves, run.lazy))
     if run.deferred:
         raise SchemaError(
@@ -242,7 +245,7 @@ def run_local_plan(plan_builder: Callable[[Table], "object"],
         raise EvaluationError(str(e).replace(
             "evaluation failed:", "evaluation failed on a shard:", 1)) \
             from None
-    return out
+    return pad_table(out, bound.capacity)
 
 
 # ---------------------------------------------------------------------------

@@ -536,3 +536,136 @@ def test_consumer_fuses_its_filters_and_a_unique_join(monkeypatch, consumer,
                                    [r[1] for r in want_rows], rtol=1e-5)
     w_at = list(got.schema.names()).index("w")
     assert any(r[w_at] is None for r in rows) == (join == "LEFT_OUTER")
+
+
+# --- compacting joins hand on their survivors --------------------------------
+
+CHAIN_DIMS = (("k1", "pk1", "a"), ("k2", "pk2", "b"), ("k3", "pk3", "c"))
+CHAIN_PLANS = {"inner2": ("INNER", "INNER"),
+               "inner3": ("INNER", "INNER", "INNER"),
+               "left_outer": ("LEFT_OUTER", "INNER"),
+               "inner3_empty": ("INNER", "INNER", "INNER")}
+
+
+def _chain_tables(route):
+    """A fact table whose keys miss a fifth of each dimension, and three
+    dimensions of 64 keys: dense ascending keys for the row-id probe,
+    permuted ones otherwise."""
+    rng = np.random.default_rng(29)
+    n, m = 800, 64
+    fact = {k: rng.integers(0, m + 16, n).astype(np.int32)
+            for k, _, _ in CHAIN_DIMS}
+    fact["v"] = rng.integers(-500, 500, n)
+    fact["id"] = np.arange(n, dtype=np.int64)
+    fschema = tuple((k, "INT32", False) for k, _, _ in CHAIN_DIMS) + (
+        ("v", "INT64", False), ("id", "INT64", False))
+    dims = []
+    for i, (_, pk, pay) in enumerate(CHAIN_DIMS):
+        keys = np.arange(m) if route == "rowid" else rng.permutation(m)
+        dims.append(_both(((pk, "INT32", False), (pay, "INT64", False)),
+                          {pk: keys.astype(np.int32),
+                           pay: rng.integers(0, 6 - i, m)}))
+    return _both(fschema, fact), dims
+
+
+def _chain(ns, plan, route, fact, dims):
+    """The plan's joins over ``fact``, one dimension each, as
+    ``ssb_common.joined`` builds them; the first join's lhs Filter fuses
+    into it (it keeps nothing in ``inner3_empty``), and a dimension off the
+    row-id route keeps its rows of a payload below 4."""
+    node = ns.ScanTable(fact)
+    if plan == "left_outer":
+        node = ns.Filter(ns.col("v") > ns.Const(-200, ns.DataType.INT64),
+                         node)
+    elif plan == "inner3_empty":
+        node = ns.Filter(ns.col("v") > ns.Const(1000, ns.DataType.INT64),
+                         node)
+    types = CHAIN_PLANS[plan]
+    keys = [k for k, _, _ in CHAIN_DIMS[:len(types)]]
+    carried = ["v", "id"]
+    for jt, (fk, pk, pay), dim in zip(types, CHAIN_DIMS, dims):
+        rhs = ns.ScanTable(dim)
+        if route != "rowid":
+            rhs = ns.Filter(ns.col(pay) < ns.Const(4, ns.DataType.INT64), rhs)
+        keys.remove(fk)
+        node = ns.HashJoin(getattr(ns.JoinType, jt), [fk], [pk], node, rhs,
+                           ns.KeyUniqueness.UNIQUE,
+                           lhs_projector=ns.Projector.named(*keys, *carried),
+                           rhs_projector=ns.Projector.named(pay),
+                           allow_dense_lookup=route != "merge")
+        carried.append(pay)
+    return node
+
+
+def _chain_consumer(ns, consumer, node):
+    A = ns.Aggregation
+    if consumer == "GroupAggregate":
+        agg = ns.GroupAggregate(
+            ["a"], [ns.AggSpec(A.SUM, "v", "sv",
+                               output_type=ns.DataType.INT64),
+                    ns.AggSpec(A.COUNT, None, "c")], node)
+        if ns is J:
+            agg._pushdown_disabled = True  # the binding the port has
+        return agg
+    if consumer == "Sort":
+        return ns.Sort([ns.SortKey("a"), ns.SortKey("id")], node)
+    x = ns.Compute([(ns.col("v") + ns.col("id")).as_("x")], node)
+    return ns.ScalarAggregate(
+        [ns.AggSpec(A.SUM, "x", "sx", output_type=ns.DataType.INT64),
+         ns.AggSpec(A.COUNT, None, "c")], x)
+
+
+@pytest.mark.parametrize("consumer",
+                         ["GroupAggregate", "ScalarAggregate", "Sort"])
+@pytest.mark.parametrize("route", ["fat_lut", "rowid", "merge"])
+@pytest.mark.parametrize("plan", list(CHAIN_PLANS))
+def test_compacting_joins_hand_on_their_survivors(monkeypatch, plan, route,
+                                                  consumer):
+    """Chains of UNIQUE joins (INNER, and LEFT_OUTER under a fused Filter)
+    under a group-by, a Compute and a scalar aggregate, or a Sort: the
+    rows are the JAX package's, and each join that compacts its output (all
+    but one under GroupAggregate or Sort, which bind the last masked) hands
+    on a table of its survivors alone, its row count a host int equal to
+    its capacity.  A first join that keeps nothing gives the next joins an
+    empty table, and the query its empty result or its NULL sum."""
+    fact, dims = _chain_tables(route)
+    outs, routes = [], []
+    orig = T.HashJoin.bind
+
+    def bind(self, ctx, _masked=False):
+        bound = orig(self, ctx, _masked=_masked)
+        routes.append(bound.route)
+        if not _masked:
+            fn = bound.fn
+
+            def run(rctx):
+                outs.append(fn(rctx))
+                return outs[-1]
+
+            bound.fn = run
+        return bound
+
+    monkeypatch.setattr(T.HashJoin, "bind", bind)
+    want = J.execute(_chain_consumer(
+        J, consumer, _chain(J, plan, route, fact[0], [d[0] for d in dims])))
+    got = T.execute(_chain_consumer(
+        T, consumer, _chain(T, plan, route, fact[1], [d[1] for d in dims])))
+    assert [(a.name, a.type.value, a.nullable) for a in got.schema] == \
+        [(a.name, a.type.value, a.nullable) for a in want.schema]
+    rows, want_rows = got.to_pylist(), want.to_pylist()
+    if consumer == "GroupAggregate":
+        rows, want_rows = sorted(rows, key=repr), sorted(want_rows, key=repr)
+    assert rows == want_rows
+    joins = len(CHAIN_PLANS[plan])
+    assert routes == [route] * joins
+    assert len(outs) == joins - (consumer != "ScalarAggregate")
+    for t in outs:
+        assert isinstance(t.num_rows, int)
+        assert t.capacity == max(t.num_rows, 1)
+    if plan == "inner3_empty":
+        assert [t.num_rows for t in outs] == [0] * len(outs)
+        assert rows == ([(None, 0)] if consumer == "ScalarAggregate" else [])
+    else:
+        sizes = [t.num_rows for t in outs]
+        assert 800 > sizes[0] and sizes == sorted(sizes, reverse=True)
+        assert sizes[-1] > 0

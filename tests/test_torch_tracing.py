@@ -238,15 +238,16 @@ def test_syncs_are_named_and_transfer_nothing_on_the_cpu(recorded):
                for s in syncs[1:])
 
 
-def _agg_reads(plan):
-    """The ``sync.agg.num_rows`` spans of one query of ``plan``, each with
-    its parent span's name."""
+def _reads(plan, site="agg.num_rows"):
+    """The ``sync.<site>`` spans of one query of ``plan``, each with its
+    parent span's name."""
+    tracing.clear()
     tracing.start()
     run_query(plan)
     tracing.stop()
     spans = tracing.spans()
     return [(s.attrs, spans[s.parent].name) for s in spans
-            if s.name == "sync.agg.num_rows"]
+            if s.name == f"sync.{site}"]
 
 
 @pytest.mark.parametrize("child", ["keep_filter", "keep_join", "count"])
@@ -275,7 +276,7 @@ def test_a_sort_path_group_by_reads_its_live_rows_once(recorded, child):
                 T.AggSpec(A.MIN, "v", "mn"),
                 T.AggSpec(A.SUM, "v", "ds", output_type=T.INT64,
                           distinct=True)], node)
-    assert _agg_reads(plan) == [({"transfers": 0, "capacity": 4000,
+    assert _reads(plan) == [({"transfers": 0, "capacity": 4000,
                                   "rows": int(keep.sum())},
                                  "op.GroupAggregate.run")]
 
@@ -288,7 +289,90 @@ def test_a_group_by_over_host_rows_reads_nothing(recorded):
                                     T.AggSpec(A.COUNT, "v", "dc",
                                               distinct=True)],
                             T.ScanTable(FACT))
-    assert _agg_reads(plan) == []
+    assert _reads(plan) == []
+
+
+def _two_joins(consumer):
+    """FACT's rows of v > 100 (the Filter fused) joined with DIM (row-id
+    probe), then with SPARSE's rows of h < 4 (fat LUT), under
+    ``consumer``: a Compute and a ScalarAggregate (both joins compact), or
+    a group-by or a Sort (the second binds masked); and the rows each join
+    keeps."""
+    A, c = T.Aggregation, T.col
+    j1 = T.HashJoin(T.JoinType.INNER, ["fk"], ["pk"],
+                    T.Filter(c("v") > T.Const(100, T.INT64),
+                             T.ScanTable(FACT)),
+                    T.ScanTable(DIM), T.KeyUniqueness.UNIQUE,
+                    lhs_projector=T.Projector.named("dk", "q", "v"),
+                    rhs_projector=T.Projector.named("g"))
+    j2 = T.HashJoin(T.JoinType.INNER, ["dk"], ["sk"], j1,
+                    T.Filter(c("h") < T.Const(4, T.INT32),
+                             T.ScanTable(SPARSE)), T.KeyUniqueness.UNIQUE,
+                    lhs_projector=T.Projector.named("q", "v", "g"),
+                    rhs_projector=T.Projector.named("h"))
+    if consumer == "Sort":
+        plan = T.Sort([T.SortKey("q")], j2)
+    elif consumer == "GroupAggregate":
+        plan = T.GroupAggregate(["q"], [T.AggSpec(A.MIN, "v", "mn")], j2)
+    else:
+        plan = T.ScalarAggregate(
+            [T.AggSpec(A.SUM, "x", "s", output_type=T.INT64)],
+            T.Compute([(c("v") * c("g")).as_("x")], j2))
+    f, s = FACT.to_numpy(), SPARSE.to_numpy()
+    kept = f["v"] > 100
+    dk = set(s["sk"][s["h"] < 4].tolist())
+    return plan, [int(kept.sum()),
+                  sum(k in dk for k in f["dk"][kept].tolist())]
+
+
+@pytest.mark.parametrize("consumer",
+                         ["ScalarAggregate", "GroupAggregate", "Sort"])
+def test_each_compacting_join_reads_its_survivors_once(recorded, consumer):
+    """A join that compacts its output reads its count once, inside its
+    own run, with the rows it kept and the lhs capacity it compacted (the
+    second join's lhs is the first's survivors); a join bound masked under
+    a group-by or a Sort reads nothing."""
+    plan, kept = _two_joins(consumer)
+    reads = [({"transfers": 0, "capacity": 4000, "rows": kept[0]},
+              "op.HashJoin.run"),
+             ({"transfers": 0, "capacity": kept[0], "rows": kept[1]},
+              "op.HashJoin.run")]
+    assert 0 < kept[1] < kept[0] < 4000
+    assert _reads(plan, "join.num_rows") == (
+        reads if consumer == "ScalarAggregate" else reads[:1])
+
+
+def test_a_star_query_syncs_in_order(recorded):
+    """The star's syncs, in order: its first join's count (the second binds
+    masked under the dense group-by, which reads none), the flags, then the
+    copy (the SUM is nullable: its validity is copied too)."""
+    tracing.start()
+    cols = run_query(star()[0])
+    tracing.stop()
+    spans = tracing.spans()
+    syncs = [s for s in spans if s.name.startswith("sync.")]
+    assert [s.name for s in syncs] == (
+        ["sync.join.num_rows", "sync.flags", "sync.copy.num_rows"]
+        + ["sync.copy.values"] * len(cols) + ["sync.copy.valid"])
+    assert syncs[0].attrs == {"transfers": 0, "capacity": 4000,
+                              "rows": int((FACT.to_numpy()["v"] > 100).sum())}
+    assert (spans[syncs[0].parent].name, spans[syncs[0].parent].attrs) == (
+        "op.HashJoin.run", {"name": "HashJoin", "route": "rowid"})
+    assert all(s.attrs == {"transfers": 0} for s in syncs[1:])
+    assert all(spans[s.parent].name in ("query.finish", "query.copy")
+               for s in syncs[1:])
+
+
+def test_a_group_by_over_a_compacting_join_reads_nothing(recorded):
+    """A sort-path group-by over a Compute over a compacting join: the
+    join's row count is a host int, so the group-by takes its prefix and
+    opens no ``sync.agg.num_rows`` span."""
+    plan, kept = _two_joins("ScalarAggregate")
+    j2 = plan.child.child
+    plan = T.GroupAggregate(["q"], [T.AggSpec(T.Aggregation.MIN, "v", "mn")],
+                            T.Compute([T.col("q"), T.col("v")], j2))
+    assert _reads(plan) == []
+    assert len(_reads(plan, "join.num_rows")) == 2
 
 
 def test_a_subclass_bind_calling_its_parents_opens_one_span(recorded):
